@@ -50,6 +50,17 @@ def mixed_max_priorities(td_abs: torch.Tensor, eps: float = 1e-6) -> torch.Tenso
             + (1.0 - PRIORITY_ETA) * td_abs + eps)
 
 
+def obs_pair(batch: dict[str, torch.Tensor]) -> torch.Tensor:
+    """obs‖next_obs: ``batch['obs_pair']`` where the batch carries it (the
+    one tensor :meth:`~apex_tpu_torch.replay.frame_pool.FramePoolReplay.
+    sample` gathers, whose halves are obs and next_obs), else
+    ``torch.cat([obs, next_obs])``."""
+    pair = batch.get("obs_pair")
+    if pair is None:
+        pair = torch.cat([batch["obs"], batch["next_obs"]])
+    return pair
+
+
 def double_dqn_loss(online: nn.Module, target: nn.Module,
                     batch: dict[str, torch.Tensor],
                     weights: torch.Tensor) -> tuple[torch.Tensor, TDOutput]:
@@ -58,10 +69,9 @@ def double_dqn_loss(online: nn.Module, target: nn.Module,
     target pass over next_obs.  ``batch['reward']`` is the n-step return
     and ``batch['discount']`` the bootstrap coefficient (``gamma**n``,
     ``gamma**k`` for truncated tails, 0 at terminals)."""
-    obs, next_obs = batch["obs"], batch["next_obs"]
-    q_values, next_q_values = online(torch.cat([obs, next_obs])).chunk(2)
+    q_values, next_q_values = online(obs_pair(batch)).chunk(2)
     with torch.no_grad():
-        tgt_next_q_values = target(next_obs)
+        tgt_next_q_values = target(batch["next_obs"])
 
     actions = batch["action"].long()
     q_taken = q_values.gather(1, actions[:, None])[:, 0]

@@ -16,9 +16,11 @@ staleness redirect; the semantics here are the same).  Differences:
   method takes a PRNG key: the learner draws them from a
   ``torch.Generator``, and the parity tests feed the ones JAX drew.
 * Sampled stacks come back in the JAX layout, ``[B, H, W, S*c]`` (NHWC,
-  oldest frame first).  For ``c == 1`` that tensor is a strided view of
-  the gathered rows, and the model's NCHW permute of it is contiguous,
-  so the layout costs no copy.
+  oldest frame first), contiguous.  One
+  :func:`~apex_tpu_torch.ops.gather.gather_stacks` call writes obs and
+  next_obs together, as the two halves of one ``[2B, H, W, S*c]`` tensor,
+  which the batch also carries as ``obs_pair`` (the loss's online pass
+  reads it whole).
 * The per-transition sidecars (``extra_spec``) of the AQL family are not
   ported yet.
 """
@@ -31,7 +33,7 @@ from dataclasses import dataclass
 import torch
 
 from apex_tpu_torch.ops import tree as tree_ops
-from apex_tpu_torch.ops.gather import gather_rows
+from apex_tpu_torch.ops.gather import gather_stacks
 from apex_tpu_torch.replay.base import PERMethods
 
 _BORN_STALE = -(2 ** 30)
@@ -230,22 +232,16 @@ class FramePoolReplay(PERMethods):
         newest = (state.pos - 1) % self.capacity
         idx = torch.where(age <= self.f_capacity, idx,
                           torch.full_like(idx, newest))
+        b = idx.shape[0]
+        ids = torch.cat([state.obs_ids[idx], state.next_ids[idx]])
+        stacks = gather_stacks(state.frames, ids, self.frame_shape)
         batch = dict(
-            obs=self._gather_stacks(state, state.obs_ids[idx]),
+            obs=stacks[:b],
             action=state.action[idx],
             reward=state.reward[idx],
-            next_obs=self._gather_stacks(state, state.next_ids[idx]),
+            next_obs=stacks[b:],
             discount=state.discount[idx],
+            obs_pair=stacks,
         )
         weights = self.is_weights(state, idx, beta)
         return batch, weights, idx
-
-    def _gather_stacks(self, state: FramePoolState,
-                       ids: torch.Tensor) -> torch.Tensor:
-        """(B, S) frame-ring rows -> (B, *shape[:-1], S*shape[-1]), oldest
-        frame first on the last axis."""
-        b, s = ids.shape
-        shape = self.frame_shape
-        rows = gather_rows(state.frames, ids.reshape(-1))   # (B*S, D)
-        rows = rows.view(b, s, *shape).movedim(1, -2)       # stack before channel
-        return rows.reshape(b, *shape[:-1], s * shape[-1])

@@ -6,9 +6,10 @@
 Phases, each of which exits nonzero on failure before any result line:
 
 1. build   -- compile the hand-written CUDA kernels from ``csrc/``.
-2. kernels -- hold each kernel bit-exact against its plain PyTorch
-   version on the card, and time kernel, plain version and the library
-   call (CUDA events, median) at the learner's shapes.
+2. kernels -- hold each kernel (``gather_rows``, ``gather_stacks``)
+   bit-exact against its plain PyTorch version on the card over every
+   copy path, and time kernel, plain version and the library call (CUDA
+   events, median) at the learner's shapes.
 3. reference -- a small learner (42x42 Catch frames, f32, TF32 off) run
    on the card and on the CPU from the same weights, chunks and sample
    uniforms: batches bit-exact, losses and weights within tolerance.
@@ -17,12 +18,16 @@ Phases, each of which exits nonzero on failure before any result line:
    capacity 2^19, frame ring 2^20, 512-transition / 528-frame chunks
    made by an in-process acting loop.  Ingest until warm, then fused
    steps; checks losses, priorities, the sum tree, the target sync and
-   that the gather kernel ran twice per step.
+   that ``gather_stacks`` ran once per step (obs and next_obs together)
+   and ``gather_rows`` not at all.
 
 Then it prints the card's name and power limit, one ``{"kernels": ...}``
 line and, last, ``{"ok": true, "device": {...}}``.  It needs one card
 and exits nonzero without one.  ``--profile DIR`` also traces a few more
-fused steps with ``torch.profiler`` and writes device time by op to DIR.
+fused steps with ``torch.profiler``, writes device time by op and by
+kernel to DIR and prints the gather and copy kernels' device time.
+``--parent DIR`` also builds the ``gather_rows`` kernel of an earlier
+checkout unpacked at DIR and times it beside this one.
 """
 
 from __future__ import annotations
@@ -38,10 +43,6 @@ import time
 
 import numpy as np
 import torch
-
-# published device-memory rates (bytes/s) by card name, NVIDIA data sheets
-_MEMORY_RATE = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12),
-                ("H200", 4.8e12), ("H100", 3.35e12))
 
 SEED = 1122
 WARMUP_CHUNKS = 8            # ingest-only chunks before the first step
@@ -66,7 +67,16 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+# -- timing ----------------------------------------------------------------
+
+# published device-memory rates (bytes/s) by card name, NVIDIA data sheets
+_MEMORY_RATE = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12),
+                ("H200", 4.8e12), ("H100", 3.35e12))
+FLUSH_BYTES = 128 * 2 ** 20     # over twice an H100's 50 MB L2
+
+
 def memory_rate(name: str) -> float:
+    """Published device-memory rate of the card called ``name``."""
     for key, rate in _MEMORY_RATE:
         if key in name:
             return rate
@@ -79,7 +89,12 @@ def time_ms(fns: dict, iters: int = 30, warmup: int = 3) -> dict:
     memory).  The card first runs a sleep kernel long enough for the host
     to enqueue every timed call behind it, so each pair of events brackets
     device work only, not the host's launch gaps.  Calls are interleaved
-    round-robin, so every function sees the same card state."""
+    round-robin.  Before each call, outside its events, a read of
+    ``FLUSH_BYTES`` evicts what the previous call left in the L2 cache
+    (writing back its output) and leaves only clean lines there, so every
+    call starts from the same cache state; without it a gather's time
+    depended on which call ran before it."""
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device="cuda")
     for name, fn in fns.items():
         for i in range(warmup):
             fn(i)
@@ -88,6 +103,7 @@ def time_ms(fns: dict, iters: int = 30, warmup: int = 3) -> dict:
     torch.cuda._sleep(200_000_000)          # ~0.1 s at H100 clocks
     for it in range(iters):
         for name, fn in fns.items():
+            flush.amax()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -101,59 +117,171 @@ def time_ms(fns: dict, iters: int = 30, warmup: int = 3) -> dict:
 
 # -- phase 2: kernels ------------------------------------------------------
 
-def kernel_phase(dev, gather, card: str) -> dict:
-    g = torch.Generator(device=dev).manual_seed(SEED)
-    f_rows, d = 2 ** 20, 84 * 84
-    n = 2 * 512 * 4 // 2                       # one gather call of the step
-    ring = torch.empty((f_rows, d), dtype=torch.uint8, device=dev)
-    ring.random_(0, 256, generator=g)
+FRAME = (84, 84, 1)          # one ApexCatch frame: a 7056-byte ring row
+STACK = 4
+RING_ROWS = 2 ** 20          # the slice's frame ring
 
-    def rand_ids(count, high):
-        return torch.randint(0, high, (count,), dtype=torch.int32,
-                             device=dev, generator=g)
 
-    small_u8 = torch.empty((4096, 42 * 42), dtype=torch.uint8, device=dev)
-    small_u8.random_(0, 256, generator=g)
-    odd_u8 = small_u8[:, :1763].contiguous()            # byte-wise path
-    ring_f32 = torch.randn((4096, 1024), device=dev, generator=g)
-    edge = torch.tensor([0, f_rows - 1, f_rows - 1, 7, 0, 0, f_rows - 1, 1],
-                        dtype=torch.int32, device=dev)
-    cases = {
-        "u8 D=7056, N=2048 over F=2^20": (ring, rand_ids(n, f_rows)),
-        "u8 D=7056, repeated + boundary ids": (ring, edge),
-        "u8 D=1764 (4-byte path)": (small_u8, rand_ids(n, 4096)),
-        "u8 D=1763 (byte path)": (odd_u8, rand_ids(n, 4096)),
-        "f32 D=1024": (ring_f32, rand_ids(n, 4096)),
-    }
+def parent_gather_rows(root: str, gather):
+    """``gather_rows`` of the checkout at ``root`` (an earlier commit of
+    this repo, whose ``gather.cu`` has the same ``apex_gather_rows`` C
+    entry point), built beside this one's library."""
+    import ctypes
+
+    lib_path = os.path.join(gather.BUILD_DIR, "libapex_gather_parent.so")
+    os.makedirs(gather.BUILD_DIR, exist_ok=True)
+    subprocess.run([gather._nvcc(), *gather.NVCC_FLAGS, "-o", lib_path,
+                    os.path.join(root, "apex_tpu_torch", "ops", "csrc",
+                                 "gather.cu")],
+                   check=True, capture_output=True, text=True)
+    entry = ctypes.CDLL(lib_path).apex_gather_rows
+    entry.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 3 + [
+        ctypes.c_void_p]
+    entry.restype = ctypes.c_int
+
+    def run(frames, ids):
+        out = torch.empty((ids.shape[0], frames.shape[1]), dtype=frames.dtype,
+                          device=frames.device)
+        err = entry(frames.data_ptr(), ids.data_ptr(), out.data_ptr(),
+                    ids.shape[0], frames.shape[0],
+                    frames.shape[1] * frames.element_size(),
+                    torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"parent gather_rows launch failed: cudaError {err}")
+        return out
+    return run
+
+
+def library_stacks(ring, ids, shape):
+    """``gather_stacks`` as two torch calls: ``index_select``, then the
+    movedim/reshape copy into the contiguous (N, H, W, S*C) layout."""
+    n, s = ids.shape
+    rows = torch.index_select(ring, 0, ids.view(-1)).view(n, s, *shape)
+    return rows.movedim(1, -2).reshape(
+        n, *shape[:-1], s * shape[-1]).contiguous()
+
+
+def _exact(name: str, cases: list, kernel, plain) -> float:
+    """Hold ``kernel`` bit-exact against ``plain`` on every case; returns
+    the largest absolute difference seen (0 when all agree)."""
     max_err = 0.0
-    for what, (frames, ids) in cases.items():
-        got = gather.gather_rows(frames, ids)
-        want = gather.gather_rows_reference(frames, ids)
+    for what, *args in cases:
+        got, want = kernel(*args), plain(*args)
         torch.cuda.synchronize()
+        check(got.shape == want.shape and got.is_contiguous(),
+              f"{name}: shape or layout differs from plain version: {what}")
         err = (got.float() - want.float()).abs().max().item()
         max_err = max(max_err, err)
-        check(torch.equal(got, want), f"gather_rows != plain version: {what}")
-        log(f"kernel gather_rows {what}: bit-exact")
+        check(torch.equal(got, want), f"{name} != plain version: {what}")
+        log(f"kernel {name} {what}: bit-exact")
+    return max_err
 
-    id_sets = [rand_ids(n, f_rows) for _ in range(33)]
-    ms = time_ms({
-        "kernel": lambda i: gather.gather_rows(ring, id_sets[i]),
-        "plain": lambda i: gather.gather_rows_reference(ring, id_sets[i]),
-        "library": lambda i: torch.index_select(ring, 0, id_sets[i]),
+
+def kernel_phase(dev, gather, card: str,
+                 parent: str | None = None) -> list[dict]:
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    d = math.prod(FRAME)
+    rate = memory_rate(card)
+
+    def u8(rows, width):
+        return torch.empty((rows, width), dtype=torch.uint8,
+                           device=dev).random_(0, 256, generator=g)
+
+    def rand_ids(*shape, high=RING_ROWS):
+        return torch.randint(0, high, shape, dtype=torch.int32, device=dev,
+                             generator=g)
+
+    ring = u8(RING_ROWS, d)
+    ring3 = u8(4096, 3 * d)                                # 84x84x3 frames
+    small = ring3[:, :42 * 42].contiguous()                # 1764-byte rows
+    small3 = ring3[:, :42 * 42 * 3].contiguous()           # 5292-byte rows
+    odd = ring3[:, :1763].contiguous()
+    ring_f32 = torch.randn((4096, 1024), device=dev, generator=g)
+    vec_f32 = ring_f32[:, :136].contiguous()
+    off16 = u8(1, 512 * d + 16).view(-1)[4:4 + 512 * d].view(512, d)
+    edge = torch.tensor([0, RING_ROWS - 1, RING_ROWS - 1, 7, 0, 0,
+                         RING_ROWS - 1, 1], dtype=torch.int32, device=dev)
+    n = 2 * 512 * STACK // 2                   # PR 1's per-call row count
+    rows_err = _exact("gather_rows", [
+        ("u8 D=7056, N=2048 over F=2^20 (bulk copies)", ring, rand_ids(n)),
+        ("u8 D=7056, repeated + boundary ids", ring, edge),
+        ("u8 D=1764 (4-byte path)", small, rand_ids(n, high=4096)),
+        ("u8 D=1763 (byte path)", odd, rand_ids(n, high=4096)),
+        ("f32 D=1024 (bulk copies)", ring_f32, rand_ids(n, high=4096)),
+        ("u8 D=7056, ring base 4 bytes past 16 (4-byte path)", off16,
+         rand_ids(n, high=512)),
+    ], gather.gather_rows, gather.gather_rows_reference)
+    if parent:
+        parent_rows = parent_gather_rows(parent, gather)
+        _exact("parent checkout's gather_rows",
+               [("u8 D=7056, N=2048 over F=2^20", ring, rand_ids(n))],
+               parent_rows, gather.gather_rows_reference)
+    stacks_err = _exact("gather_stacks", [
+        ("(84,84,1) S=4, ids [1024, 4] over F=2^20 (bulk, byte transpose)",
+         ring, rand_ids(1024, STACK), FRAME),
+        ("(84,84,1) S=4, repeated + boundary ids", ring, edge.view(2, 4),
+         FRAME),
+        ("(84,84,1) S=1 (bulk row copies)", ring, rand_ids(512, 1), FRAME),
+        ("(84,84,3) S=4 (bulk, byte interleave)", ring3,
+         rand_ids(512, 4, high=4096), (84, 84, 3)),
+        ("(42,42,3) S=4 (byte path)", small3, rand_ids(512, 4, high=4096),
+         (42, 42, 3)),
+        ("(42,42,3) S=1 (4-byte row path)", small3,
+         rand_ids(512, 1, high=4096), (42, 42, 3)),
+        ("(42,42,1) S=4 (byte path)", small, rand_ids(512, 4, high=4096),
+         (42, 42, 1)),
+        ("f32 (32,32,1) S=4 (bulk, word interleave)", ring_f32,
+         rand_ids(512, 4, high=4096), (32, 32, 1)),
+        ("f32 (136,) S=4 (bulk row copies)", vec_f32,
+         rand_ids(512, 4, high=4096), (136,)),
+        ("(84,84,1) S=4, ring base 4 bytes past 16 (byte path)", off16,
+         rand_ids(256, 4, high=512), FRAME),
+    ], gather.gather_stacks, gather.gather_stacks_reference)
+    del ring3, small, small3, odd, ring_f32, vec_f32, off16
+
+    rows = {}
+    for count in (n, 2 * n):
+        sets = [rand_ids(count) for _ in range(33)]
+        fns = {
+            "kernel": lambda i: gather.gather_rows(ring, sets[i]),
+            "plain": lambda i: gather.gather_rows_reference(ring, sets[i]),
+            "library": lambda i: torch.index_select(ring, 0, sets[i]),
+        }
+        if parent:
+            fns["parent"] = lambda i: parent_rows(ring, sets[i])
+        rows[count] = time_ms(fns)
+        moved = 2 * count * d + 4 * count     # rows read + written, ids read
+        rows[count]["bound"] = moved / rate * 1e3
+        log(f"gather_rows N={count} D={d}: kernel "
+            f"{rows[count]['kernel']:.6f} ms, plain "
+            f"{rows[count]['plain']:.6f} ms, index_select "
+            f"{rows[count]['library']:.6f} ms, bound "
+            f"{rows[count]['bound']:.6f} ms ({moved} B at {rate:.3g} B/s)"
+            + (f", parent checkout's kernel {rows[count]['parent']:.6f} ms"
+               if parent else ""))
+    sets = [rand_ids(2 * BATCH, STACK) for _ in range(33)]
+    st = time_ms({
+        "kernel": lambda i: gather.gather_stacks(ring, sets[i], FRAME),
+        "plain": lambda i: gather.gather_stacks_reference(ring, sets[i],
+                                                          FRAME),
+        "library": lambda i: library_stacks(ring, sets[i], FRAME),
     })
-    moved = 2 * n * d + 4 * n                  # rows read + written, ids read
-    bound_ms = moved / memory_rate(card) * 1e3
-    log(f"gather_rows N={n} D={d}: kernel {ms['kernel']:.6f} ms, plain "
-        f"{ms['plain']:.6f} ms, index_select {ms['library']:.6f} ms, bound "
-        f"{bound_ms:.6f} ms ({moved} B at {memory_rate(card):.3g} B/s)")
-    del ring, id_sets
+    moved = 2 * sets[0].numel() * d + 4 * sets[0].numel()
+    st["bound"] = moved / rate * 1e3
+    log(f"gather_stacks ids [{2 * BATCH}, {STACK}] D={d}: kernel "
+        f"{st['kernel']:.6f} ms, plain {st['plain']:.6f} ms, index_select + "
+        f"re-layout copy {st['library']:.6f} ms, bound {st['bound']:.6f} ms "
+        f"({moved} B at {rate:.3g} B/s)")
+    del ring, sets
     torch.cuda.empty_cache()
-    return dict(name="gather_rows", route="cuda",
-                source="apex_tpu_torch/ops/csrc/gather.cu",
-                replaces="apex_tpu/ops/gather.py:71",
-                max_abs_err=max_err, ms=ms["kernel"], kernel_ms=ms["kernel"],
-                plain_ms=ms["plain"], bound_ms=bound_ms, bound_by="bytes",
-                library_ms=ms["library"])
+    common = dict(route="cuda", source="apex_tpu_torch/ops/csrc/gather.cu",
+                  replaces="apex_tpu/ops/gather.py:71", bound_by="bytes")
+    return [dict(name="gather_rows", max_abs_err=rows_err,
+                 ms=rows[n]["kernel"], plain_ms=rows[n]["plain"],
+                 bound_ms=rows[n]["bound"], library_ms=rows[n]["library"],
+                 **common),
+            dict(name="gather_stacks", max_abs_err=stacks_err,
+                 ms=st["kernel"], plain_ms=st["plain"], bound_ms=st["bound"],
+                 library_ms=st["library"], **common)]
 
 
 # -- chunk streams ---------------------------------------------------------
@@ -305,11 +433,17 @@ def profile_steps(trainer, msgs: list, out_dir: str) -> None:
     lines += ["device us/step  calls/step  kernel or copy"]
     lines += [f"{a.self_device_time_total / n:14.1f}  {a.count / n:10.1f}  "
               f"{a.key[:120]}" for a in kernels]
+    # the stack rebuild and every copy that moves the batch's bytes again
+    moves = [line for line in lines[len(lines) - len(kernels):]
+             if any(k in line for k in ("gather", "bulk_kernel", "reg_kernel",
+                                        "Cat", "copy", "Copy", "Memcpy"))]
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(out_dir, "chip_smoke_profile.txt")
     with open(path, "w") as f:
         f.write("\n".join(lines) + "\n")
     log("profile: " + "\nprofile: ".join(lines[:16]) + f"\nprofile: -> {path}")
+    log("profile: gather and copy kernels, device us/step  calls/step\n"
+        "profile: " + "\nprofile: ".join(moves))
 
 
 def slice_phase(dev, gather, profile_dir: str | None = None) -> dict:
@@ -346,7 +480,8 @@ def slice_phase(dev, gather, profile_dir: str | None = None) -> dict:
 
     ts = trainer.train_state
     step_ms, synced = [], 0
-    gather.LAUNCH_COUNTS["gather_rows"] = 0           # main path starts
+    for name in gather.LAUNCH_COUNTS:                 # main path starts
+        gather.LAUNCH_COUNTS[name] = 0
     for msg in msgs:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -363,13 +498,13 @@ def slice_phase(dev, gather, profile_dir: str | None = None) -> dict:
                             ts.target_params.parameters()):
                 check(torch.equal(p, t), "slice: target != online after sync")
             synced += 1
-    launches = gather.LAUNCH_COUNTS["gather_rows"]   # main path ends
+    launches = dict(gather.LAUNCH_COUNTS)             # main path ends
 
     check(trainer.steps == TRAIN_STEPS == ts.step,
           f"slice: {trainer.steps} fused steps, train state at {ts.step}")
-    check(launches == 2 * TRAIN_STEPS,
-          f"slice: gather kernel launched {launches} times for "
-          f"{TRAIN_STEPS} steps (want 2 per step)")
+    check(launches == {"gather_rows": 0, "gather_stacks": TRAIN_STEPS},
+          f"slice: gather launches {launches} in {TRAIN_STEPS} steps (want "
+          f"one gather_stacks per step and no gather_rows)")
     check(synced == TRAIN_STEPS // TARGET_INTERVAL,
           f"slice: {synced} target syncs")
     rs = trainer.replay_state
@@ -398,6 +533,9 @@ def main() -> int:
     parser.add_argument("--profile", metavar="DIR",
                         help="after the timed steps, trace a few more fused "
                              "steps with torch.profiler into DIR")
+    parser.add_argument("--parent", metavar="DIR",
+                        help="also build the gather_rows kernel of the "
+                             "checkout at DIR and time it beside this one")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -412,10 +550,11 @@ def main() -> int:
     gather.build(verbose=True)
     log(f"build: gather.cu in {time.perf_counter() - t0:.3f} s")
 
-    row = kernel_phase(dev, gather, card)
+    rows = kernel_phase(dev, gather, card, args.parent)
     reference_phase(dev)
     result = slice_phase(dev, gather, args.profile)
-    row["launches"] = result["launches"]
+    for row in rows:
+        row["launches"] = result["launches"][row["name"]]
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -423,7 +562,7 @@ def main() -> int:
         timeout=60)
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
     log(smi.stdout.strip().splitlines()[0])
-    log(json.dumps({"kernels": [row]}))
+    log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,
         "count": torch.cuda.device_count()}}))

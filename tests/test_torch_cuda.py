@@ -56,6 +56,66 @@ def test_gather_kernel_matches_plain_version(card, rows, d, dtype):
     assert torch.equal(got, gather.gather_rows_reference(frames, ids))
 
 
+def _ring(card, rows, d, dtype, seed):
+    g = torch.Generator(device=card).manual_seed(seed)
+    if dtype == torch.uint8:
+        frames = torch.empty((rows, d), dtype=dtype, device=card)
+        return frames.random_(0, 256, generator=g)
+    return torch.randn((rows, d), device=card, generator=g)
+
+
+def _stack_ids(card, n, s, rows, seed):
+    g = torch.Generator(device=card).manual_seed(seed)
+    ids = torch.randint(0, rows, (n, s), dtype=torch.int32, device=card,
+                        generator=g)
+    ids[:3] = torch.tensor([[0] * s, [rows - 1] * s, [0, rows - 1] * (s // 2)
+                            + [5] * (s % 2)], dtype=torch.int32)
+    return ids
+
+
+@pytest.mark.parametrize("shape,s,dtype", [
+    ((84, 84, 1), 4, torch.uint8),      # bulk copies, 4x4 byte transpose
+    ((84, 84, 1), 1, torch.uint8),      # one frame per sample: row gather
+    ((84, 84, 3), 4, torch.uint8),      # bulk copies, byte interleave
+    ((42, 42, 4), 2, torch.uint8),      # bulk copies, word interleave
+    ((42, 42, 1), 4, torch.float32),    # f32: bulk copies, word interleave
+    ((42, 42, 1), 4, torch.uint8),      # 1764-byte rows: byte path
+    ((42, 42, 3), 3, torch.uint8),      # 5292-byte rows: byte path
+    ((21, 21, 1), 4, torch.float32),    # 1764-byte rows: word path
+    ((136,), 4, torch.float32),         # vector frames: row gather
+    ((1763,), 4, torch.uint8),          # odd vector frames: byte rows
+])
+def test_gather_stacks_kernel_matches_plain_version(card, shape, s, dtype):
+    rows = 2048
+    frames = _ring(card, rows, int(np.prod(shape)), dtype, seed=s)
+    ids = _stack_ids(card, 300, s, rows, seed=len(shape))
+    before = dict(gather.LAUNCH_COUNTS)
+    got = gather.gather_stacks(frames, ids, shape)
+    torch.cuda.synchronize()
+    assert gather.LAUNCH_COUNTS["gather_stacks"] == before["gather_stacks"] + 1
+    assert gather.LAUNCH_COUNTS["gather_rows"] == before["gather_rows"]
+    want = gather.gather_stacks_reference(frames, ids, shape)
+    assert got.shape == want.shape and got.is_contiguous()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("offset", [4, 1])
+def test_unaligned_ring_views_take_the_register_paths(card, offset):
+    """A ring whose base is 4- or 1-byte aligned but not 16: the bulk
+    copies cannot take it, the register paths do, and stay exact."""
+    rows, shape = 512, (84, 84, 1)
+    d = int(np.prod(shape))
+    buf = _ring(card, rows * d + 16, 1, torch.uint8, seed=offset).view(-1)
+    frames = buf[offset:offset + rows * d].view(rows, d)
+    assert frames.data_ptr() % 16 != 0
+    ids = _stack_ids(card, 64, 4, rows, seed=offset)
+    got = gather.gather_stacks(frames, ids, shape)
+    flat = gather.gather_rows(frames, ids.view(-1))
+    torch.cuda.synchronize()
+    assert torch.equal(got, gather.gather_stacks_reference(frames, ids, shape))
+    assert torch.equal(flat, gather.gather_rows_reference(frames, ids.view(-1)))
+
+
 def test_gather_kernel_refuses_what_it_cannot_take(card):
     frames = torch.zeros((16, 64), dtype=torch.uint8, device=card)
     ids = torch.zeros(4, dtype=torch.int32, device=card)
@@ -67,21 +127,42 @@ def test_gather_kernel_refuses_what_it_cannot_take(card):
         gather.gather_rows(frames[:, ::2], ids)
     with pytest.raises(ValueError, match="CUDA"):
         gather.gather_rows(frames, ids.cpu())
+    with pytest.raises(ValueError, match="frame_shape"):
+        gather.gather_stacks(frames, ids.view(2, 2), (9, 7, 1))
+    # an empty call launches nothing, and counts nothing
+    before = dict(gather.LAUNCH_COUNTS)
     assert gather.gather_rows(frames, ids[:0]).shape == (0, 64)
+    assert gather.gather_stacks(frames, ids.view(2, 2)[:0],
+                                (8, 8, 1)).shape == (0, 8, 8, 2)
+    assert gather.LAUNCH_COUNTS == before
+
+
+def _launch_in_a_process_of_its_own(call: str):
+    code = ("import torch\n"
+            "from apex_tpu_torch.ops.gather import gather_rows, gather_stacks\n"
+            "f = torch.zeros((8, 64), dtype=torch.uint8, device='cuda')\n"
+            "ids = torch.tensor([1, 8], dtype=torch.int32, device='cuda')\n"
+            f"{call}\n"
+            "torch.cuda.synchronize()\n")
+    return subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
 
 
 def test_gather_kernel_traps_an_id_outside_the_ring(card):
     """An out-of-range id fails the launch instead of reading past the
     ring.  The fault poisons the CUDA context, so it runs in a process of
     its own."""
-    code = ("import torch\n"
-            "from apex_tpu_torch.ops.gather import gather_rows\n"
-            "f = torch.zeros((8, 64), dtype=torch.uint8, device='cuda')\n"
-            "ids = torch.tensor([1, 8], dtype=torch.int32, device='cuda')\n"
-            "gather_rows(f, ids)\n"
-            "torch.cuda.synchronize()\n")
-    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
-                          capture_output=True, text=True, timeout=300)
+    proc = _launch_in_a_process_of_its_own("gather_rows(f, ids)")
+    assert proc.returncode != 0
+    assert "CUDA error" in proc.stderr, proc.stderr[-2000:]
+
+
+@pytest.mark.parametrize("call", [
+    "gather_stacks(f, ids.view(1, 2), (8, 8, 1))",                # bulk
+    "gather_stacks(f[:, :63].contiguous(), ids.view(1, 2), (9, 7, 1))",
+])
+def test_gather_stacks_kernel_traps_an_id_outside_the_ring(card, call):
+    proc = _launch_in_a_process_of_its_own(call)
     assert proc.returncode != 0
     assert "CUDA error" in proc.stderr, proc.stderr[-2000:]
 
@@ -106,10 +187,12 @@ def test_frame_pool_sample_on_the_card_matches_the_cpu(card):
             pool.add(state, chunk, prios)
     offsets = torch.from_numpy(rng.random(b, dtype=np.float32))
     want, want_w, want_idx = pool.sample(states["cpu"], offsets, 0.4)
-    before = gather.LAUNCH_COUNTS["gather_rows"]
+    before = dict(gather.LAUNCH_COUNTS)
     got, got_w, got_idx = pool.sample(states[card], offsets.to(card), 0.4)
     torch.cuda.synchronize()
-    assert gather.LAUNCH_COUNTS["gather_rows"] == before + 2
+    # obs and next_obs come from one launch
+    assert gather.LAUNCH_COUNTS == dict(before, gather_stacks=before[
+        "gather_stacks"] + 1)
     assert torch.equal(got_idx.cpu(), want_idx)
     for key in want:
         assert torch.equal(got[key].cpu(), want[key]), key

@@ -23,6 +23,7 @@ from apex_tpu.replay.frame_chunks import FrameChunkBuilder as JaxBuilder
 from apex_tpu.replay.frame_pool import FramePoolReplay as JaxPool
 from apex_tpu_torch.replay.frame_chunks import (FrameChunkBuilder,
                                                 drain_builder_chunks)
+from apex_tpu_torch.replay import frame_pool as frame_pool_module
 from apex_tpu_torch.replay.frame_pool import FramePoolReplay
 
 SHAPE = (42, 42, 1)
@@ -30,12 +31,12 @@ S = 4
 
 
 def _drive(builders, rng, episodes=5, ep_len=(1, 30), extras=False,
-           flush=True):
+           flush=True, shape=SHAPE):
     """Feed identical trajectories to every builder; returns the chunks
     each emitted (poll, then force_flush when ``flush``)."""
     out = [[] for _ in builders]
     for _ in range(episodes):
-        f0 = rng.integers(0, 255, SHAPE).astype(np.uint8)
+        f0 = rng.integers(0, 255, shape).astype(np.uint8)
         for b in builders:
             b.begin_episode(f0)
         n = int(rng.integers(*ep_len))
@@ -44,7 +45,7 @@ def _drive(builders, rng, episodes=5, ep_len=(1, 30), extras=False,
             last = t == n - 1
             args = (int(rng.integers(0, 3)), float(rng.normal()),
                     rng.normal(size=3).astype(np.float32),
-                    rng.integers(0, 255, SHAPE).astype(np.uint8),
+                    rng.integers(0, 255, shape).astype(np.uint8),
                     last and not truncated_end, last and truncated_end)
             ex = ({"a_mu": rng.normal(size=(2, 3)).astype(np.float32)}
                   if extras else None)
@@ -112,28 +113,39 @@ def _assert_state_equal(jpool, js, ts, leaves_rtol=None):
     assert ts.max_priority.item() == float(js.max_priority)
 
 
-def _chunk_stream(seed, n_chunks_min=6):
+def _chunk_stream(seed, n_chunks_min=6, shape=SHAPE):
     rng = np.random.default_rng(seed)
-    b = JaxBuilder(3, 0.99, S, SHAPE, chunk_transitions=16)
-    chunks = _drive([b], rng, episodes=8, ep_len=(5, 40))[0]
+    b = JaxBuilder(3, 0.99, S, shape, chunk_transitions=16)
+    chunks = _drive([b], rng, episodes=8, ep_len=(5, 40), shape=shape)[0]
     assert len(chunks) >= n_chunks_min
     return chunks
 
 
-@pytest.mark.parametrize("alpha,rtol", [(1.0, None), (0.6, 1e-6)])
-def test_add_sample_update_match(alpha, rtol):
+@pytest.mark.parametrize("alpha,rtol,shape", [
+    pytest.param(1.0, None, SHAPE, id="1.0-None"),
+    pytest.param(0.6, 1e-6, SHAPE, id="0.6-1e-06"),
+    pytest.param(1.0, None, (42, 42, 3), id="1.0-None-42x42x3"),
+    pytest.param(1.0, None, (136,), id="1.0-None-136"),
+])
+def test_add_sample_update_match(alpha, rtol, shape, monkeypatch):
     """Chunks wrap both rings several times; after every add the states
-    agree, and samples from the same uniforms return the same batch."""
-    jpool = JaxPool(capacity=64, frame_shape=SHAPE, frame_stack=S,
+    agree, and samples from the same uniforms return the same batch.  One
+    ``gather_stacks`` call per sample builds obs and next_obs, as the two
+    halves of one tensor, which the batch carries as ``obs_pair``."""
+    calls = []
+    real = frame_pool_module.gather_stacks
+    monkeypatch.setattr(frame_pool_module, "gather_stacks",
+                        lambda *args: calls.append(args) or real(*args))
+    jpool = JaxPool(capacity=64, frame_shape=shape, frame_stack=S,
                     alpha=alpha)
-    tpool = FramePoolReplay(capacity=64, frame_shape=SHAPE, frame_stack=S,
+    tpool = FramePoolReplay(capacity=64, frame_shape=shape, frame_stack=S,
                             alpha=alpha)
     js, ts = jpool.init(), tpool.init("cpu")
     _assert_state_equal(jpool, js, ts)
     add = jax.jit(jpool.add)
     sample = jax.jit(jpool.sample, static_argnums=(2,))
     update = jax.jit(jpool.update_priorities)
-    for i, chunk in enumerate(_chunk_stream(seed=2)):
+    for i, chunk in enumerate(_chunk_stream(seed=2, shape=shape)):
         prios = chunk.pop("priorities")
         js = add(js, {k: jnp.asarray(v) for k, v in chunk.items()},
                  jnp.asarray(prios))
@@ -144,7 +156,13 @@ def test_add_sample_update_match(alpha, rtol):
         offsets = np.array(jax.random.uniform(key, (16,), jnp.float32))
         # apexlint: disable=J004 -- parity test: JAX redraws the offsets above from the same key
         jb, jw, jidx = sample(js, key, 16, 0.4)
+        calls.clear()
         tb, tw, tidx = tpool.sample(ts, torch.from_numpy(offsets), 0.4)
+        assert len(calls) == 1
+        pair = tb.pop("obs_pair")
+        assert pair.data_ptr() == tb["obs"].data_ptr()
+        assert torch.equal(pair, torch.cat([tb["obs"], tb["next_obs"]]))
+        assert tb["next_obs"].data_ptr() == pair.data_ptr() + tb["obs"].nbytes
         np.testing.assert_array_equal(tidx.numpy(), np.asarray(jidx))
         for k in jb:
             assert tb[k].shape == jb[k].shape, k

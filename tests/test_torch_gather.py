@@ -1,9 +1,9 @@
-"""Port of the frame-ring gather: the plain version against the JAX paths.
+"""Port of the frame-ring gathers: the plain versions against the JAX paths.
 
-On the CPU ``apex_tpu_torch.ops.gather.gather_rows`` runs its plain
-version; the CUDA kernel itself is held against that plain version on the
-card by ``chip_smoke.py``.  A gather is a copy, so every comparison here
-is bit-exact.
+On the CPU ``apex_tpu_torch.ops.gather.gather_rows`` and ``gather_stacks``
+run their plain versions; the CUDA kernels themselves are held against
+those on the card by ``chip_smoke.py`` and ``tests/test_torch_cuda.py``.
+A gather is a copy, so every comparison here is bit-exact.
 """
 
 import jax.numpy as jnp
@@ -13,7 +13,8 @@ import torch
 
 from apex_tpu.ops.gather import gather_rows as jax_gather_rows
 from apex_tpu_torch.ops.gather import (LAUNCH_COUNTS, gather_rows,
-                                       gather_rows_reference)
+                                       gather_rows_reference, gather_stacks,
+                                       gather_stacks_reference)
 
 
 @pytest.mark.parametrize("n,f,d,dtype", [
@@ -68,3 +69,53 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     assert torch.equal(got, gather_rows_reference(frames, ids))
     assert torch.equal(got, frames[[3, 3, 15]])
 
+
+
+# -- gather_stacks: the frame stacks of FramePoolReplay.sample ---------------
+
+ROW_UNIT = 8 * 128          # the JAX pool pads rows to whole (8, 128) tiles
+
+
+def _jax_stacks(frames, ids, shape, mode):
+    """``apex_tpu/replay/frame_pool.py:_gather_stacks`` on a ring padded to
+    whole tiles, as the JAX pool stores it: the row gather, the padding
+    dropped, then moveaxis/reshape."""
+    f, d = frames.shape
+    ring = np.zeros((f, -(-d // ROW_UNIT) * ROW_UNIT), frames.dtype)
+    ring[:, :d] = frames
+    n, s = ids.shape
+    rows = jax_gather_rows(jnp.asarray(ring), jnp.asarray(ids.reshape(-1)),
+                           mode=mode)[:, :d]
+    rows = jnp.moveaxis(rows.reshape(n, s, *shape), 1, -2)
+    return np.asarray(rows.reshape(n, *shape[:-1], s * shape[-1]))
+
+
+@pytest.mark.parametrize("mode", ["interpret", "xla"])
+@pytest.mark.parametrize("s", [1, 4])
+@pytest.mark.parametrize("shape,dtype", [((84, 84, 1), np.uint8),
+                                         ((42, 42, 3), np.uint8),
+                                         ((136,), np.float32)])
+def test_gather_stacks_matches_jax_pool_layout(shape, dtype, s, mode):
+    rng = np.random.default_rng(len(shape) + s)
+    f = 12
+    frames = rng.integers(0, 255, (f, int(np.prod(shape)))).astype(dtype)
+    ids = rng.integers(0, f, (7, s)).astype(np.int32)
+    ids[0], ids[1] = f - 1, ids[2]                 # boundary and repeated ids
+    want = _jax_stacks(frames, ids, shape, mode)
+    got = gather_stacks(torch.from_numpy(frames), torch.from_numpy(ids),
+                        shape)
+    assert got.shape == want.shape == (7, *shape[:-1], s * shape[-1])
+    assert got.is_contiguous()
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_gather_stacks_on_cpu_takes_the_plain_version_and_counts_no_launch():
+    frames = torch.arange(6 * 12, dtype=torch.uint8).reshape(6, 12)
+    ids = torch.tensor([[0, 5], [5, 5], [2, 1]], dtype=torch.int32)
+    before = dict(LAUNCH_COUNTS)
+    got = gather_stacks(frames, ids, (2, 3, 2))
+    assert LAUNCH_COUNTS == before
+    assert torch.equal(got, gather_stacks_reference(frames, ids, (2, 3, 2)))
+    # out[n, h, w, s*C + c] = frames[ids[n, s], (h*W + w)*C + c]
+    want = frames[ids.long()].view(3, 2, 2, 3, 2).permute(0, 2, 3, 1, 4)
+    assert torch.equal(got, want.reshape(3, 2, 3, 4))

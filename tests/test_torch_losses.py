@@ -123,3 +123,31 @@ def test_staircase_learning_rate():
     assert opt.learning_rate(0) == opt.learning_rate(999) == 1.0
     assert opt.learning_rate(1000) == 0.99
     assert tl.make_optimizer(lr=0.5, lr_decay_steps=0).learning_rate(5000) == 0.5
+
+
+def test_obs_halves_of_one_tensor_reach_the_network_without_a_copy():
+    """FramePoolReplay.sample returns obs and next_obs as the halves of
+    one tensor and hands that tensor over as ``obs_pair``; the online pass
+    then reads it itself, and the loss is the one that separate obs and
+    next_obs give."""
+    rng = np.random.default_rng(2)
+    batch = {k: torch.from_numpy(v) for k, v in _batch(rng, b=8).items()}
+    both = torch.cat([batch["obs"], batch["next_obs"]])
+    halves = dict(batch, obs=both[:8], next_obs=both[8:], obs_pair=both)
+    assert tl.obs_pair(halves) is both
+    apart = tl.obs_pair(batch)
+    assert apart.data_ptr() != batch["obs"].data_ptr()
+    assert torch.equal(apart, both)
+
+    gen = torch.Generator().manual_seed(0)
+    online = DuelingDQN(3, OBS, compute_dtype=torch.float32, generator=gen)
+    target = DuelingDQN(3, OBS, compute_dtype=torch.float32, generator=gen)
+    seen = []
+    online.register_forward_hook(lambda mod, args, out: seen.append(args[0]))
+    weights = torch.from_numpy(rng.uniform(0.2, 1.0, 8).astype(np.float32))
+    loss_apart, aux_apart = tl.double_dqn_loss(online, target, batch, weights)
+    loss_halves, aux_halves = tl.double_dqn_loss(online, target, halves,
+                                                 weights)
+    assert seen[1] is both
+    assert torch.equal(loss_halves, loss_apart)
+    assert torch.equal(aux_halves.priorities, aux_apart.priorities)
