@@ -1,10 +1,12 @@
 """Configuration dataclasses read by the port.
 
 A copy of the sections of :mod:`apex_tpu.config` the frame-pool learner
-slice reads, with the same defaults (reference hyperparameters:
-``origin_repo/arguments.py:9-74``).  Fields that only later slices read
-(Atari wrappers, actor fleet, ingest pipeline, mesh, comms, AQL, R2D2)
-are not copied yet.
+and the concurrent Ape-X trainer read, with the same defaults (reference
+hyperparameters: ``origin_repo/arguments.py:9-74``).  Fields that only
+later slices read (Atari wrappers, ingest pipeline, mesh, comms, remote
+policy, AQL, R2D2) are not copied yet: the port's
+:meth:`~apex_tpu_torch.training.apex.ConcurrentTrainer.train` is the JAX
+trainer's serial drain (``ingest_pipeline=False``).
 """
 
 from __future__ import annotations
@@ -48,16 +50,42 @@ class LearnerConfig:
     n_steps: int = 3
     max_grad_norm: float = 40.0
     target_update_interval: int = 2500
+    publish_interval: int = 25       # param publish period, learner steps
     compute_dtype: str = "bfloat16"  # conv/matmul dtype; params stay f32
+    # >1: when at least this many chunks are queued and the replay-ratio
+    # budget allows, drain them into one fused_multi_step call of
+    # scan_steps fused steps
+    scan_steps: int = 1
 
 
 @dataclass(frozen=True)
 class ActorConfig:
-    """Actor hyperparameters (reference: arguments.py:9-40)."""
+    """Actor-fleet hyperparameters (reference: arguments.py:9-40,
+    batchrecorder.py:121)."""
 
+    n_actors: int = 8
+    # env slots driven by each worker process through one batched policy
+    # call per step; the exploration ladder spans all
+    # n_actors * n_envs_per_actor slots
+    n_envs_per_actor: int = 1
     send_interval: int = 50          # transitions per shipped chunk
+    update_interval: int = 400       # env steps between param refresh polls
     eps_base: float = 0.4            # ladder eps_base^(1 + i/(N-1)*eps_alpha)
     eps_alpha: float = 7.0
+    # anneal each slot's epsilon 1.0 -> its ladder value over this many of
+    # its own env steps (exp decay); 0 = the fixed reference ladder
+    eps_anneal_steps: int = 0
+    max_episode_length: int | None = None   # None = the env's own limit
+    # chunk transport: the native shared-memory ring when it builds, else
+    # multiprocessing.Queue
+    shm_data_plane: bool = True
+    shm_slot_bytes: int = 0          # 0 = drivers size it from the frame spec
+    # the JAX workers' overlap of one half-group's env steps with the
+    # other's inference; the port's vector workers run the serial
+    # interleave in both modes (actors/vector.py) and report the flag
+    double_buffer: bool = True
+    # vector steps between ActorTimingStat emissions; 0 = off
+    timing_interval: int = 256
 
 
 @dataclass(frozen=True)

@@ -1,31 +1,97 @@
 """Env construction for the port.
 
-Counterpart of :mod:`apex_tpu.envs.registry` for the envs this slice runs:
-the ``ApexCatch*`` family, un-stacked (``stack_frames=False``), the form
-the frame-pool actors consume.  Stacking happens on the device at sample
-time and in :class:`~apex_tpu_torch.replay.frame_chunks.FrameChunkBuilder`
-while acting, so the port has no FrameStack wrapper.
+Counterpart of :mod:`apex_tpu.envs.registry` for the envs the port runs:
+the ``ApexCatch*`` family.  :func:`make_env` builds them un-stacked
+(``stack_frames=False``), the form the frame-pool actors consume: stacks
+are rebuilt on the device at sample time and in
+:class:`~apex_tpu_torch.replay.frame_chunks.FrameChunkBuilder` while
+acting.  Only the evaluator steps a stacked env (:func:`make_eval_env`).
+The wrappers are gymnasium-free copies of ``apex_tpu.envs.wrappers``'
+``TimeLimit`` and ``FrameStack``.
 """
 
 from __future__ import annotations
 
+from collections import deque
 from typing import Any
 
+import numpy as np
+
 from apex_tpu_torch.config import EnvConfig
-from apex_tpu_torch.envs.toy import CatchEnv
+from apex_tpu_torch.envs.toy import Box, CatchEnv
+
+
+class TimeLimit:
+    """Truncate an episode after ``max_episode_steps`` steps (reference
+    ``wrapper.py:282-298``)."""
+
+    def __init__(self, env, max_episode_steps: int):
+        self.env = env
+        self.observation_space = env.observation_space
+        self.action_space = env.action_space
+        self._max = max_episode_steps
+        self._elapsed = 0
+
+    def reset(self, **kwargs):
+        self._elapsed = 0
+        return self.env.reset(**kwargs)
+
+    def step(self, action):
+        obs, reward, terminated, truncated, info = self.env.step(action)
+        self._elapsed += 1
+        if self._elapsed >= self._max:
+            truncated = True
+        return obs, reward, terminated, truncated, info
+
+    def close(self) -> None:
+        self.env.close()
+
+
+class FrameStack:
+    """The last ``k`` frames concatenated on the channel axis, oldest
+    first; a reset fills all ``k`` with the reset frame (reference
+    ``wrapper.py:160-205``)."""
+
+    def __init__(self, env, k: int):
+        self.env = env
+        self.k = k
+        self.action_space = env.action_space
+        shape = env.observation_space.shape
+        self.observation_space = Box(0, 255, shape[:-1] + (shape[-1] * k,),
+                                     env.observation_space.dtype)
+        self._frames: deque = deque(maxlen=k)
+
+    def reset(self, **kwargs):
+        obs, info = self.env.reset(**kwargs)
+        for _ in range(self.k):
+            self._frames.append(obs)
+        return np.concatenate(self._frames, axis=-1), info
+
+    def step(self, action):
+        obs, reward, terminated, truncated, info = self.env.step(action)
+        self._frames.append(obs)
+        return (np.concatenate(self._frames, axis=-1), reward, terminated,
+                truncated, info)
+
+    def close(self) -> None:
+        self.env.close()
 
 
 def make_env(env_id: str | None = None, cfg: EnvConfig | None = None,
-             seed: int | None = None, stack_frames: bool = False) -> CatchEnv:
+             seed: int | None = None,
+             max_episode_steps: int | None = None,
+             stack_frames: bool = False):
     """Catch variants with the geometry of ``apex_tpu.envs.registry``
     (``registry.py:95-101``): Small 7x7 at 42x42 with 3 balls, Medium
-    11x11 at 44x44 with 4 balls, full 21x21 at 84x84 with 5 balls."""
+    11x11 at 44x44 with 4 balls, full 21x21 at 84x84 with 5 balls.
+    ``max_episode_steps`` wraps the env in :class:`TimeLimit`."""
     cfg = cfg or EnvConfig()
     env_id = env_id or cfg.env_id
     if stack_frames:
-        raise ValueError("the port builds un-stacked envs only "
+        raise ValueError("make_env builds un-stacked envs only "
                          "(stack_frames=False): stacks are rebuilt by the "
-                         "frame pool and the chunk builder")
+                         "frame pool and the chunk builder; the evaluator's "
+                         "stacked env is make_eval_env")
     if not env_id.startswith("ApexCatch"):
         raise ValueError(f"env {env_id!r} is not ported yet; the port "
                          f"serves the ApexCatch* family")
@@ -35,12 +101,28 @@ def make_env(env_id: str | None = None, cfg: EnvConfig | None = None,
         env = CatchEnv(grid=11, pixels=44, balls=4)
     else:
         env = CatchEnv()
+    if max_episode_steps is not None:
+        env = TimeLimit(env, max_episode_steps)
     if seed is not None:
         env.reset(seed=seed)
     return env
 
 
-def unstacked_env_spec(env: CatchEnv,
+def make_eval_env(env_id: str | None = None, cfg: EnvConfig | None = None,
+                  seed: int | None = None):
+    """The evaluator's env: full episodes with frame stacks of
+    ``cfg.frame_stack`` (the JAX evaluator's env also drops reward
+    clipping and episodic life, which Catch does not have)."""
+    cfg = cfg or EnvConfig()
+    env = make_env(env_id, cfg)
+    if len(env.observation_space.shape) == 3 and cfg.frame_stack > 1:
+        env = FrameStack(env, cfg.frame_stack)
+    if seed is not None:
+        env.reset(seed=seed)
+    return env
+
+
+def unstacked_env_spec(env,
                        cfg: EnvConfig) -> tuple[tuple[int, ...], Any, int]:
     """(frame_shape, frame_dtype, frame_stack) for an un-stacked env — the
     FrameChunkBuilder/FramePoolReplay spec.  1-D observations use
@@ -51,5 +133,5 @@ def unstacked_env_spec(env: CatchEnv,
     return shape, space.dtype, stack
 
 
-def num_actions(env: CatchEnv) -> int:
+def num_actions(env) -> int:
     return int(env.action_space.n)

@@ -18,12 +18,18 @@ Kept from the JAX model, so the two take the same inputs and weights:
   ``{advantage,value}_{hidden,out}``.
 * bf16 compute through ``torch.autocast``; params and the head output
   stay f32.
+
+The learner publishes its weights to the actor processes in host form,
+:func:`host_params` (a ``state_dict`` of numpy arrays: CUDA tensors sent
+through a queue would need CUDA IPC in the child), and each actor loads
+them into its CPU model with :func:`load_host_params`.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Mapping, Sequence
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -93,6 +99,22 @@ class DuelingDQN(nn.Module):
                 torch.relu(self.advantage_hidden(x))).float()
             value = self.value_out(torch.relu(self.value_hidden(x))).float()
         return value + advantage - advantage.mean(dim=1, keepdim=True)
+
+
+def host_params(model: nn.Module) -> dict[str, np.ndarray]:
+    """The model's ``state_dict`` as host numpy arrays (one device-to-host
+    copy per tensor when the model is on the card)."""
+    return {name: t.detach().cpu().numpy().copy()
+            for name, t in model.state_dict().items()}
+
+
+def load_host_params(model: nn.Module,
+                     params: Mapping[str, np.ndarray | torch.Tensor]) -> None:
+    """Copy a host ``state_dict`` (numpy arrays or tensors, as made by
+    :func:`host_params` or :func:`apex_tpu_torch.convert.params_from_flax`)
+    into ``model`` in place; names and shapes must match exactly."""
+    model.load_state_dict({name: torch.as_tensor(value)
+                           for name, value in params.items()})
 
 
 def make_policy_fn(model: DuelingDQN):

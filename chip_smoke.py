@@ -20,9 +20,24 @@ Phases, each of which exits nonzero on failure before any result line:
    steps; checks losses, priorities, the sum tree, the target sync and
    that ``gather_stacks`` ran once per step (obs and next_obs together)
    and ``gather_rows`` not at all.
+5. train    -- the system as its users run it: ``ApexTrainer.train`` with
+   4 spawned actor processes x 8 envs acting on the CPU (32 ladder
+   slots, 64-transition chunks) feeding the learner on the card over the
+   shared-memory chunk ring, at the geometry of phase 4 with a
+   4096-transition warm-up, for 100 learner steps.  Checks the steps, the
+   ring, the param publishes the actors acted on, one ``gather_stacks``
+   launch per learner step and no ``gather_rows``, finite metrics, the
+   sum tree, and that no actor process and no segment outlive
+   ``train()``; prints the dispatch counts, learner steps/s, env
+   frames/s, the actors' phase fractions and peak memory.  Then, in this
+   process at a worker's thread count, one worker's vector family times
+   its serial interleave against a helper-thread overlap of its two
+   half-groups, with a bf16 and an f32 policy.
 
 Then it prints the card's name and power limit, one ``{"kernels": ...}``
-line and, last, ``{"ok": true, "device": {...}}``.  It needs one card
+line (``launches`` counts phase 5, the system's entry point;
+``launches_by_path`` adds phase 4's consume path) and, last,
+``{"ok": true, "device": {...}}``.  It needs one card
 and exits nonzero without one.  ``--profile DIR`` also traces a few more
 fused steps with ``torch.profiler``, writes device time by op and by
 kernel to DIR and prints the gather and copy kernels' device time.
@@ -46,12 +61,17 @@ import torch
 
 SEED = 1122
 WARMUP_CHUNKS = 8            # ingest-only chunks before the first step
-TRAIN_STEPS = 24             # fused steps timed on the main path
+TRAIN_STEPS = 24             # fused steps timed on phase 4's path
 CAPACITY = 2 ** 19           # transitions; the frame ring holds twice as many
 BATCH = 512
 TARGET_INTERVAL = 10         # target syncs at steps 10 and 20
 N_ENVS = 32                  # acting envs batched into one policy call
 PROFILE_STEPS = 8            # extra fused steps traced with --profile
+# phase 5: bench.py part 2's topology
+N_ACTORS, ENVS_PER_ACTOR, SEND_INTERVAL = 4, 8, 64
+TRAIN_WARMUP = 4096          # transitions resident before the first step
+LOOP_STEPS = 100             # learner steps of train()
+LOOP_SECONDS = 120.0         # train()'s wall-clock bound
 
 
 class SmokeFailure(RuntimeError):
@@ -528,6 +548,181 @@ def slice_phase(dev, gather, profile_dir: str | None = None) -> dict:
     return dict(launches=launches, ms_per_step=ms, peak_bytes=peak)
 
 
+# -- phase 5: train() with actor processes ---------------------------------
+
+def _finite_logged(trainer) -> int:
+    """Check every learner metric train() logged is finite; returns how
+    many values were checked."""
+    n = 0
+    for name in ("loss", "grad_norm", "q_mean", "td_mean"):
+        values = [v for _, v in trainer.log.history.get(f"learner/{name}",
+                                                        [])]
+        check(all(math.isfinite(v) for v in values),
+              f"train: non-finite {name} logged: {values}")
+        n += len(values)
+    return n
+
+
+def train_phase(dev, gather) -> dict:
+    from apex_tpu_torch.config import (ActorConfig, ApexConfig, EnvConfig,
+                                       LearnerConfig, ReplayConfig)
+    from apex_tpu_torch.native.ring import SEGMENT_PREFIX
+    from apex_tpu_torch.training.apex import ApexTrainer
+
+    cfg = ApexConfig(
+        env=EnvConfig(env_id="ApexCatch-v0", seed=SEED),
+        replay=ReplayConfig(capacity=CAPACITY, warmup=TRAIN_WARMUP),
+        learner=LearnerConfig(batch_size=BATCH, target_update_interval=500),
+        actor=ActorConfig(n_actors=N_ACTORS, n_envs_per_actor=ENVS_PER_ACTOR,
+                          send_interval=SEND_INTERVAL, timing_interval=32))
+    torch.cuda.reset_peak_memory_stats(dev)
+    trainer = ApexTrainer(cfg, device=dev, publish_min_seconds=0.5)
+    pool = trainer.pool
+    log(f"train: {N_ACTORS} actor processes x {ENVS_PER_ACTOR} envs, "
+        f"{pool.threads} torch threads each, chunks of {SEND_INTERVAL} "
+        f"transitions, warm-up {TRAIN_WARMUP}, batch {BATCH}, capacity "
+        f"{CAPACITY}, ring {trainer.replay.f_capacity} rows")
+    for name in gather.LAUNCH_COUNTS:                 # main path starts
+        gather.LAUNCH_COUNTS[name] = 0
+    t0 = time.perf_counter()
+    trainer.train(total_steps=LOOP_STEPS, max_seconds=LOOP_SECONDS,
+                  log_every=25)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(gather.LAUNCH_COUNTS)             # main path ends
+
+    check(trainer.steps == LOOP_STEPS,
+          f"train: {trainer.steps} learner steps in {wall:.1f} s, want "
+          f"{LOOP_STEPS} within {LOOP_SECONDS} s")
+    check(pool.chunk_plane == "shm",
+          f"train: chunks rode {pool.chunk_plane}, not the shm ring")
+    check(trainer.param_version >= 2,
+          f"train: {trainer.param_version} param publishes")
+    versions = [v for _, v in
+                trainer.log.history.get("learner/episode_param_version", [])]
+    check(bool(versions) and min(versions) > 0,
+          f"train: episode stats' param versions {versions[:8]}")
+    check(launches == {"gather_rows": 0, "gather_stacks": trainer.steps},
+          f"train: gather launches {launches} in {trainer.steps} steps")
+    n_logged = _finite_logged(trainer)
+    check(n_logged > 0, "train: no learner metrics logged")
+    rs, c = trainer.replay_state, trainer.replay.capacity
+    leaves = rs.sum_tree[c:c + rs.size]
+    root, total = rs.sum_tree[1].item(), leaves.double().sum().item()
+    check(bool(torch.isfinite(leaves).all()) and bool((leaves > 0).all()),
+          "train: non-finite or non-positive priorities")
+    check(abs(root - total) <= 1e-5 * total,
+          f"train: sum-tree root {root} != sum of leaves {total}")
+    alive = [p.pid for p in pool.procs if p.is_alive()]
+    check(not alive, f"train: actor processes {alive} outlived train()")
+    left = [f for f in os.listdir("/dev/shm")
+            if f.startswith(f"{SEGMENT_PREFIX}-{os.getpid()}-")]
+    check(not left, f"train: segments left in /dev/shm: {left}")
+
+    peak = torch.cuda.max_memory_allocated(dev)
+    plane = trainer.actor_plane()
+    check(plane is not None, "train: no actor reported its timing")
+    log(f"train: {trainer.steps} learner steps in {wall:.3f} s of train(); "
+        f"dispatches {trainer.dispatches}; {trainer.ingested} transitions "
+        f"ingested; param_version {trainer.param_version}; "
+        f"{len(versions)} episodes drained, param versions "
+        f"{min(versions)}..{max(versions)}")
+    log(f"train: learner steps/s {trainer.steps_rate.rate:.3f} (last "
+        f"{min(100, trainer.steps)} steps), env frames/s ingested "
+        f"{trainer.frames_rate.rate:.1f} (last 100 chunks), "
+        f"{trainer.ingested / wall:.1f} over train(); actors report "
+        f"{plane['frames_per_sec_sum']:.1f} frames/s in all")
+    log(f"train: actor phases policy_wait {plane['policy_wait_frac']:.4f} "
+        f"env_step {plane['env_step_frac']:.4f} drain "
+        f"{plane['drain_frac']:.4f} (mean of {plane['workers_reporting']} "
+        f"workers, double_buffer {plane['double_buffer']}), stat drops "
+        f"{plane['stat_drops']}; dispatch gap "
+        f"{trainer._dispatch_gap.snapshot()}; peak memory "
+        f"{peak / 2**30:.3f} GiB; {n_logged} logged metrics finite; "
+        f"gather launches {launches}; no actor alive, no segment left")
+    return dict(launches=launches, wall=wall, threads=pool.threads)
+
+
+def _overlapped_step(family, helper, seed: int) -> None:
+    """One vector step of ``family`` with a helper thread running the
+    second half-group's policy while this thread steps the first group's
+    envs: the overlap the JAX workers' ``double_buffer`` buys, which the
+    port's workers do not run (``apex_tpu_torch/actors/vector.py``)."""
+    from apex_tpu_torch.actors.vector import group_generator
+
+    (sl_a, sl_b), (eps_a, eps_b) = family.groups, family._group_eps()
+    out_a = family._policy_group(sl_a, eps_a, group_generator(seed, 0))
+    pending = helper.submit(family._policy_group, sl_b, eps_b,
+                            group_generator(seed, 1))
+    stats: list = []
+    family._step_group(sl_a, out_a, stats)
+    family._step_group(sl_b, pending.result(), stats)
+
+
+def actor_phase(threads: int) -> None:
+    """One worker's vector family (8 envs of ``ApexCatch-v0``) on the CPU
+    at a worker's intra-op thread count: env frames/s of the serial
+    interleave the workers run, and of a helper-thread overlap of the two
+    half-groups, in turns (serial, overlap, overlap, serial), with the
+    policy in bf16 (the model spec's dtype, which the workers keep) and
+    in f32."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from apex_tpu_torch.actors.vector import (VectorDQNWorkerFamily,
+                                              step_seed, worker_slots)
+    from apex_tpu_torch.config import (ActorConfig, ApexConfig, EnvConfig,
+                                       LearnerConfig)
+    from apex_tpu_torch.models.dueling import DuelingDQN, host_params
+    from apex_tpu_torch.training.apex import dqn_env_specs
+
+    saved = torch.get_num_threads()
+    torch.set_num_threads(threads)
+    helper = ThreadPoolExecutor(max_workers=1)
+    try:
+        for dtype in ("bfloat16", "float32"):
+            cfg = ApexConfig(
+                env=EnvConfig(env_id="ApexCatch-v0", seed=SEED),
+                learner=LearnerConfig(compute_dtype=dtype),
+                actor=ActorConfig(n_actors=N_ACTORS,
+                                  n_envs_per_actor=ENVS_PER_ACTOR,
+                                  send_interval=SEND_INTERVAL))
+            spec = dqn_env_specs(cfg)[0]
+            slots, seeds, eps = worker_slots(cfg, 0)
+            rates = {"serial": [], "overlap": []}
+            for mode in ("serial", "overlap", "overlap", "serial"):
+                fam = VectorDQNWorkerFamily(cfg, spec, seeds, slots, eps,
+                                            SEND_INTERVAL)
+                fam.load_params(host_params(DuelingDQN(
+                    **spec, generator=torch.Generator().manual_seed(SEED))))
+                fam.reset_all()
+                gen = torch.Generator().manual_seed(SEED)
+
+                def step():
+                    if mode == "serial":
+                        fam.step_all(step_seed(gen))
+                    else:
+                        _overlapped_step(fam, helper, step_seed(gen))
+                    fam.poll_msgs()
+
+                for _ in range(5):
+                    step()
+                n = 40
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    step()
+                rates[mode].append(n * fam.n_envs
+                                   / (time.perf_counter() - t0))
+                fam.close()
+            log(f"actors: one worker's {ENVS_PER_ACTOR} envs, {dtype} "
+                f"policy, {threads} torch threads: env frames/s serial "
+                f"{rates['serial']}, helper-thread overlap "
+                f"{rates['overlap']} (runs serial, overlap, overlap, "
+                f"serial)")
+    finally:
+        helper.shutdown()
+        torch.set_num_threads(saved)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR",
@@ -553,8 +748,15 @@ def main() -> int:
     rows = kernel_phase(dev, gather, card, args.parent)
     reference_phase(dev)
     result = slice_phase(dev, gather, args.profile)
+    loop = train_phase(dev, gather)
+    actor_phase(loop["threads"])
     for row in rows:
-        row["launches"] = result["launches"][row["name"]]
+        # train() is the system's entry point: its counts are the main
+        # path's; phase 4's consume path is kept beside them
+        row["launches"] = loop["launches"][row["name"]]
+        row["launches_by_path"] = {
+            "train": loop["launches"][row["name"]],
+            "consume": result["launches"][row["name"]]}
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -13,11 +13,14 @@ A gather is a copy, so every comparison is bit-exact.
 import pathlib
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
 import torch
 
+from apex_tpu_torch.actors.pool import ActorPool
+from apex_tpu_torch.config import ActorConfig, ApexConfig
 from apex_tpu_torch.ops import gather
 from apex_tpu_torch.replay.frame_pool import FramePoolReplay
 
@@ -198,3 +201,37 @@ def test_frame_pool_sample_on_the_card_matches_the_cpu(card):
         assert torch.equal(got[key].cpu(), want[key]), key
     # the same f32 tree sums on both devices; pow may round differently
     torch.testing.assert_close(got_w.cpu(), want_w, rtol=1e-6, atol=0)
+
+
+def _report_devices(actor_id, cfg, model_spec, chunk_queue, param_queue,
+                    stat_queue, stop_event, epsilon, chunk_transitions):
+    """A worker body (the pool's signature) that reports what it sees."""
+    import os
+
+    stat_queue.put((actor_id, torch.cuda.is_available(),
+                    torch.cuda.device_count(),
+                    os.environ.get("CUDA_VISIBLE_DEVICES"),
+                    torch.get_num_threads()))
+
+
+def test_spawned_actor_workers_see_no_cuda_device(card):
+    """The learner's process holds a CUDA context; the actor processes it
+    spawns see no card and run the intra-op threads the pool gave them."""
+    torch.zeros(1, device=card)
+    pool = ActorPool(ApexConfig(actor=ActorConfig(n_actors=2)), {},
+                     chunk_transitions=16, worker_fn=_report_devices)
+    pool.start()
+    reports = []
+    try:
+        deadline = time.monotonic() + 120
+        while len(reports) < 2 and time.monotonic() < deadline:
+            reports.extend(pool.poll_stats())
+            time.sleep(0.1)
+    finally:
+        pool.cleanup()
+    assert sorted(r[0] for r in reports) == [0, 1]
+    for _, available, count, visible, threads in reports:
+        assert (available, count, visible) == (False, 0, "")
+        assert threads == pool.threads
+    assert not any(p.is_alive() for p in pool.procs)
+    assert torch.cuda.is_available()       # the parent still has its card
