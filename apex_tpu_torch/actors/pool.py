@@ -36,6 +36,7 @@ import math
 import multiprocessing as mp
 import os
 import queue as queue_lib
+import threading
 import time
 from dataclasses import dataclass
 from typing import Any
@@ -151,15 +152,16 @@ class DQNWorkerFamily:
 
 
 def _latest_params(param_queue, version: int, family) -> int:
-    """Drain the param queue, keep the newest entry, load it into the
-    family when it is newer than ``version``; returns the version held."""
+    """Drain the param queue, keep the last entry, load it into the
+    family when it is newer than ``version``; returns the version held.
+    An entry older than the one held is never loaded."""
     newest = None
     try:
         while True:
             newest = param_queue.get_nowait()
     except queue_lib.Empty:
         pass
-    if newest is not None and newest[0] != version:
+    if newest is not None and newest[0] > version:
         version = newest[0]
         family.load_params(newest[1])
     return version
@@ -276,6 +278,10 @@ class ActorPool:
         self.chunk_plane: str | None = None
         self.procs: list = []
         self._started = False
+        # publishes (from the learner or its staging thread) and the
+        # respawn's handover of the newest params queue under one lock, so
+        # a respawned worker is never handed a version older than a publish
+        self._param_lock = threading.Lock()
         self._last_params: tuple | None = None
         self.worker_deaths = 0          # cumulative respawn count
         # a slot that keeps dying is a systemic fault (bad env, import
@@ -395,8 +401,9 @@ class ActorPool:
                   f"{self._slot_respawns[i]}x within "
                   f"{self.respawn_window_s:.0f}s; pausing its respawns, "
                   f"running with a reduced fleet", flush=True)
-        if self._last_params is not None:
-            self._put_latest(self.param_queues[i], *self._last_params)
+        with self._param_lock:
+            if self._last_params is not None:
+                self._put_latest(self.param_queues[i], *self._last_params)
         return True
 
     def cleanup(self, grace_seconds: float = 10.0) -> None:
@@ -436,10 +443,12 @@ class ActorPool:
 
     def publish_params(self, version: int, params: Any) -> None:
         """Latest-wins broadcast of host params (reference
-        ``set_worker_weights``, ``batchrecorder.py:140-146``)."""
-        self._last_params = (version, params)
-        for q in self.param_queues:
-            self._put_latest(q, version, params)
+        ``set_worker_weights``, ``batchrecorder.py:140-146``); safe to call
+        from another thread than :meth:`respawn_worker`."""
+        with self._param_lock:
+            self._last_params = (version, params)
+            for q in self.param_queues:
+                self._put_latest(q, version, params)
 
     @staticmethod
     def _put_latest(q, version: int, params: Any) -> None:

@@ -1,12 +1,11 @@
 """Configuration dataclasses read by the port.
 
-A copy of the sections of :mod:`apex_tpu.config` the frame-pool learner
-and the concurrent Ape-X trainer read, with the same defaults (reference
-hyperparameters: ``origin_repo/arguments.py:9-74``).  Fields that only
-later slices read (Atari wrappers, ingest pipeline, mesh, comms, remote
-policy, AQL, R2D2) are not copied yet: the port's
-:meth:`~apex_tpu_torch.training.apex.ConcurrentTrainer.train` is the JAX
-trainer's serial drain (``ingest_pipeline=False``).
+A copy of the sections of :mod:`apex_tpu.config` the port's drivers read
+(the concurrent Ape-X trainer with its ingest pipeline, the single-process
+DQN driver, checkpointing), with the same defaults (reference
+hyperparameters: ``origin_repo/arguments.py:9-74``), and of
+:func:`~apex_tpu.config.small_test_config`.  Fields that only later slices
+read (mesh, comms, remote policy, AQL, R2D2) are not copied yet.
 """
 
 from __future__ import annotations
@@ -51,11 +50,22 @@ class LearnerConfig:
     max_grad_norm: float = 40.0
     target_update_interval: int = 2500
     publish_interval: int = 25       # param publish period, learner steps
+    save_interval: int = 5000        # learner steps between checkpoints
     compute_dtype: str = "bfloat16"  # conv/matmul dtype; params stay f32
+    # transitions the DQN driver folds into each replay ingest (fixed shape)
+    ingest_chunk: int = 512
     # >1: when at least this many chunks are queued and the replay-ratio
     # budget allows, drain them into one fused_multi_step call of
     # scan_steps fused steps
     scan_steps: int = 1
+    # the staging thread of training/ingest_pipeline.py polls, merges and
+    # copies the next dispatch's chunks to the device while the current
+    # step runs; False keeps the serial drain
+    ingest_pipeline: bool = True
+    pipeline_depth: int = 2          # staged-slot ring depth
+    # max chunks merged into one ingest payload while the learner is not
+    # train-eligible (warm-up fill, replay-ratio cap)
+    pipeline_merge: int = 8
 
 
 @dataclass(frozen=True)
@@ -106,3 +116,19 @@ class ApexConfig:
 
     def replace(self, **sections: Any) -> "ApexConfig":
         return dataclasses.replace(self, **sections)
+
+
+def small_test_config(capacity: int = 1024, batch_size: int = 32,
+                      n_actors: int = 2,
+                      env_id: str = "ApexCartPole-v0") -> ApexConfig:
+    """A config sized for CI: tiny buffer, tiny batch, numpy-native env
+    (``apex_tpu/config.py:398-412``)."""
+    return ApexConfig(
+        env=EnvConfig(env_id=env_id, frame_stack=1),
+        replay=ReplayConfig(capacity=capacity,
+                            warmup=max(2 * batch_size, 64)),
+        learner=LearnerConfig(batch_size=batch_size, ingest_chunk=batch_size,
+                              target_update_interval=100,
+                              compute_dtype="float32"),
+        actor=ActorConfig(n_actors=n_actors, send_interval=16),
+    )

@@ -1,13 +1,13 @@
 """Env construction for the port.
 
 Counterpart of :mod:`apex_tpu.envs.registry` for the envs the port runs:
-the ``ApexCatch*`` family.  :func:`make_env` builds them un-stacked
-(``stack_frames=False``), the form the frame-pool actors consume: stacks
-are rebuilt on the device at sample time and in
-:class:`~apex_tpu_torch.replay.frame_chunks.FrameChunkBuilder` while
-acting.  Only the evaluator steps a stacked env (:func:`make_eval_env`).
-The wrappers are gymnasium-free copies of ``apex_tpu.envs.wrappers``'
-``TimeLimit`` and ``FrameStack``.
+``ApexCartPole-v0`` and the ``ApexCatch*`` family.  :func:`make_env`
+builds them un-stacked by default (``stack_frames=False``), the form the
+frame-pool actors consume: stacks are rebuilt on the device at sample
+time and in :class:`~apex_tpu_torch.replay.frame_chunks.FrameChunkBuilder`
+while acting.  The evaluator and the DQN driver, whose replay stores whole
+observations, step stacked pixel envs.  The wrappers are gymnasium-free
+copies of ``apex_tpu.envs.wrappers``' ``TimeLimit`` and ``FrameStack``.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ from typing import Any
 import numpy as np
 
 from apex_tpu_torch.config import EnvConfig
-from apex_tpu_torch.envs.toy import Box, CatchEnv
+from apex_tpu_torch.envs.toy import Box, CartPoleEnv, CatchEnv
 
 
 class TimeLimit:
@@ -81,28 +81,32 @@ def make_env(env_id: str | None = None, cfg: EnvConfig | None = None,
              seed: int | None = None,
              max_episode_steps: int | None = None,
              stack_frames: bool = False):
-    """Catch variants with the geometry of ``apex_tpu.envs.registry``
-    (``registry.py:95-101``): Small 7x7 at 42x42 with 3 balls, Medium
-    11x11 at 44x44 with 4 balls, full 21x21 at 84x84 with 5 balls.
-    ``max_episode_steps`` wraps the env in :class:`TimeLimit`."""
+    """The envs of ``apex_tpu.envs.registry`` that the port serves
+    (``registry.py:77-101``): ``ApexCartPole-v0``, whose own limit is 500
+    steps unless ``max_episode_steps`` is given, and the Catch variants:
+    Small 7x7 at 42x42 with 3 balls, Medium 11x11 at 44x44 with 4 balls,
+    full 21x21 at 84x84 with 5 balls, where ``max_episode_steps`` wraps
+    the env in :class:`TimeLimit`.  ``stack_frames`` stacks the last
+    ``cfg.frame_stack`` frames of a pixel env."""
     cfg = cfg or EnvConfig()
     env_id = env_id or cfg.env_id
-    if stack_frames:
-        raise ValueError("make_env builds un-stacked envs only "
-                         "(stack_frames=False): stacks are rebuilt by the "
-                         "frame pool and the chunk builder; the evaluator's "
-                         "stacked env is make_eval_env")
-    if not env_id.startswith("ApexCatch"):
-        raise ValueError(f"env {env_id!r} is not ported yet; the port "
-                         f"serves the ApexCatch* family")
-    if "Small" in env_id:
-        env = CatchEnv(grid=7, pixels=42, balls=3)
-    elif "Medium" in env_id:
-        env = CatchEnv(grid=11, pixels=44, balls=4)
+    if env_id == "ApexCartPole-v0":
+        env = (CartPoleEnv(max_episode_steps=max_episode_steps)
+               if max_episode_steps is not None else CartPoleEnv())
+    elif env_id.startswith("ApexCatch"):
+        if "Small" in env_id:
+            env = CatchEnv(grid=7, pixels=42, balls=3)
+        elif "Medium" in env_id:
+            env = CatchEnv(grid=11, pixels=44, balls=4)
+        else:
+            env = CatchEnv()
+        if max_episode_steps is not None:
+            env = TimeLimit(env, max_episode_steps)
+        if stack_frames and cfg.frame_stack > 1:
+            env = FrameStack(env, cfg.frame_stack)
     else:
-        env = CatchEnv()
-    if max_episode_steps is not None:
-        env = TimeLimit(env, max_episode_steps)
+        raise ValueError(f"env {env_id!r} is not ported yet; the port "
+                         f"serves ApexCartPole-v0 and the ApexCatch* family")
     if seed is not None:
         env.reset(seed=seed)
     return env
@@ -113,13 +117,7 @@ def make_eval_env(env_id: str | None = None, cfg: EnvConfig | None = None,
     """The evaluator's env: full episodes with frame stacks of
     ``cfg.frame_stack`` (the JAX evaluator's env also drops reward
     clipping and episodic life, which Catch does not have)."""
-    cfg = cfg or EnvConfig()
-    env = make_env(env_id, cfg)
-    if len(env.observation_space.shape) == 3 and cfg.frame_stack > 1:
-        env = FrameStack(env, cfg.frame_stack)
-    if seed is not None:
-        env.reset(seed=seed)
-    return env
+    return make_env(env_id, cfg, seed=seed, stack_frames=True)
 
 
 def unstacked_env_spec(env,

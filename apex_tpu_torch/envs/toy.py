@@ -1,11 +1,12 @@
-"""Numpy-native pixel env, free of gymnasium.
+"""Numpy-native envs, free of gymnasium.
 
-Counterpart of :class:`apex_tpu.envs.toy.CatchEnv` (``toy.py:272-324``)
-with the same ``reset``/``step``/``_render`` semantics.  The port cannot
-import gymnasium (the GPU host does not ship it), so the env carries its
-own minimal space stand-ins and its own ``numpy.random.Generator``, seeded
-in ``reset`` exactly as ``gymnasium.Env.reset(seed=...)`` seeds its
-``np_random`` (``np.random.default_rng(seed)``: the same PCG64 stream).
+Counterparts of :class:`apex_tpu.envs.toy.CartPoleEnv` (``toy.py:23-77``)
+and :class:`apex_tpu.envs.toy.CatchEnv` (``toy.py:272-324``) with the same
+``reset``/``step`` semantics.  The port cannot import gymnasium (the GPU
+host does not ship it), so the envs carry their own minimal space
+stand-ins and their own ``numpy.random.Generator``, seeded in ``reset``
+exactly as ``gymnasium.Env.reset(seed=...)`` seeds its ``np_random``
+(``np.random.default_rng(seed)``: the same PCG64 stream).
 """
 
 from __future__ import annotations
@@ -30,6 +31,66 @@ class Discrete:
     """Stand-in for ``gymnasium.spaces.Discrete``."""
 
     n: int
+
+
+class CartPoleEnv:
+    """Pole balancing; physics constants from the classic task definition.
+    Observations are ``(x, x_dot, theta, theta_dot)`` in f32; reward 1 per
+    step; truncation after ``max_episode_steps``."""
+
+    GRAVITY = 9.8
+    CART_MASS = 1.0
+    POLE_MASS = 0.1
+    POLE_HALF_LEN = 0.5
+    FORCE_MAG = 10.0
+    TAU = 0.02
+    THETA_LIMIT = 12 * 2 * np.pi / 360
+    X_LIMIT = 2.4
+
+    def __init__(self, max_episode_steps: int = 500):
+        self.observation_space = Box(-np.inf, np.inf, (4,),
+                                     np.dtype(np.float32))
+        self.action_space = Discrete(2)
+        self._max_steps = max_episode_steps
+        self._state = np.zeros(4, np.float64)
+        self._steps = 0
+        self.np_random: np.random.Generator | None = None
+
+    def reset(self, *, seed: int | None = None, options=None):
+        if seed is not None or self.np_random is None:
+            self.np_random = np.random.default_rng(seed)
+        self._state = self.np_random.uniform(-0.05, 0.05, size=4)
+        self._steps = 0
+        return self._state.astype(np.float32), {}
+
+    def step(self, action):
+        x, x_dot, theta, theta_dot = self._state
+        force = self.FORCE_MAG if action == 1 else -self.FORCE_MAG
+        total_mass = self.CART_MASS + self.POLE_MASS
+        pole_ml = self.POLE_MASS * self.POLE_HALF_LEN
+
+        cos, sin = np.cos(theta), np.sin(theta)
+        temp = (force + pole_ml * theta_dot ** 2 * sin) / total_mass
+        theta_acc = (self.GRAVITY * sin - cos * temp) / (
+            self.POLE_HALF_LEN * (4.0 / 3.0 - self.POLE_MASS * cos ** 2 /
+                                  total_mass))
+        x_acc = temp - pole_ml * theta_acc * cos / total_mass
+
+        self._state = np.array([
+            x + self.TAU * x_dot,
+            x_dot + self.TAU * x_acc,
+            theta + self.TAU * theta_dot,
+            theta_dot + self.TAU * theta_acc,
+        ])
+        self._steps += 1
+
+        terminated = bool(abs(self._state[0]) > self.X_LIMIT
+                          or abs(self._state[2]) > self.THETA_LIMIT)
+        truncated = self._steps >= self._max_steps
+        return (self._state.astype(np.float32), 1.0, terminated, truncated, {})
+
+    def close(self) -> None:
+        pass
 
 
 class CatchEnv:

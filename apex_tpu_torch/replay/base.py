@@ -39,7 +39,13 @@ class PERMethods:
         return ((p_sample * size) ** (-beta) / max_weight).float()
 
     def _to_tree_priority(self, priorities: torch.Tensor) -> torch.Tensor:
-        return priorities.float().clamp_min(self.eps) ** self.alpha
+        """``max(p, eps) ** alpha`` in f32, the power taken in f64 and
+        rounded once.  The CPU's f32 ``pow`` rounds differently in its
+        vector body and its scalar tail, so a value would depend on its
+        position in the batch, and one merged ingest would not equal the
+        same chunks ingested one by one."""
+        p = priorities.float().clamp_min(self.eps)
+        return (p.double() ** self.alpha).float()
 
 
 def check_hbm_budget(estimated_bytes: int, budget_gb: float, what: str,

@@ -15,18 +15,25 @@ Counterpart of :mod:`apex_tpu.training.apex` (reference ``ApeX.py``):
 * Params publish version-stamped every ``publish_interval`` learner steps
   with a wall-clock floor (``publish_min_seconds``), as host numpy arrays.
 * No training until ``replay.warmup`` transitions are resident.
+* With a ``checkpoint_dir``, the whole learner is saved every
+  ``save_interval`` learner steps (:mod:`apex_tpu_torch.training.checkpoint`).
 
-``train()`` is the JAX trainer's serial drain (``ingest_pipeline=False``,
-``apex.py:392-467``), including the ``scan_steps`` dispatch over
+``train()`` runs the JAX trainer's default path (``apex.py:307-348``,
+``:389-407``): with ``LearnerConfig.ingest_pipeline`` (the default) it
+consumes slots that the staging thread of
+:mod:`apex_tpu_torch.training.ingest_pipeline` has already polled, merged
+and put on the device, and publishes through that thread; with
+``ingest_pipeline=False`` it is the serial drain (``apex.py:392-467``).
+Both dispatch ``scan_steps`` chunks over
 :meth:`~apex_tpu_torch.training.learner.LearnerCore.fused_multi_step`.
-:meth:`ApexTrainer.consume` is its single-chunk half, for callers that
-bring their own chunk messages.
+:meth:`ApexTrainer.consume` is the serial drain's single-chunk half, for
+callers that bring their own chunk messages.
 
-Not ported yet: the async ingest pipeline, the fleet, heartbeat, obs,
-SLO and ctl planes, the status server, checkpointing, the sharded plan
-and remote policy.  Where the JAX trainer splits a PRNG key per dispatch,
-this one draws the PER sample's uniforms from a ``torch.Generator`` on
-the learner's device.
+Not ported yet: the fleet, heartbeat, obs, SLO and ctl planes, the status
+server, the sharded plan and remote policy.  Where the JAX trainer splits
+a PRNG key per dispatch, this one draws the PER sample's uniforms from a
+``torch.Generator`` on the learner's device, on the learner thread, in
+the same order on both paths.
 """
 
 from __future__ import annotations
@@ -49,6 +56,12 @@ from apex_tpu_torch.ops.tree import stratified_offsets
 from apex_tpu_torch.replay.base import check_hbm_budget
 from apex_tpu_torch.replay.frame_chunks import FRAME_MARGIN
 from apex_tpu_torch.replay.frame_pool import FramePoolReplay
+from apex_tpu_torch.training.checkpoint import (CheckpointableTrainer,
+                                                Checkpointer,
+                                                run_policy_episodes)
+from apex_tpu_torch.training.ingest_pipeline import (IngestPipeline,
+                                                     PipelineState,
+                                                     _pow2_floor)
 from apex_tpu_torch.training.learner import LearnerCore
 from apex_tpu_torch.training.state import create_train_state
 from apex_tpu_torch.utils.metrics import MetricLogger, RateCounter
@@ -71,12 +84,7 @@ def dqn_env_specs(cfg: ApexConfig):
     return model_spec, frame_shape, frame_dtype, frame_stack
 
 
-def _pow2_floor(n: int) -> int:
-    """Largest power of two <= n (n >= 1)."""
-    return 1 << (n.bit_length() - 1)
-
-
-class ConcurrentTrainer:
+class ConcurrentTrainer(CheckpointableTrainer):
     """The concurrent learner loop: drain worker chunk messages, fuse
     ingest+train, enforce the replay-ratio band, publish versioned params.
 
@@ -84,16 +92,21 @@ class ConcurrentTrainer:
     "n_trans": int}`` (:func:`~apex_tpu_torch.replay.frame_chunks.drain_builder_chunks`).
     Subclasses construct ``cfg, pool, replay, replay_state, train_state,
     core, generator, device, log, steps_rate, frames_rate, ingested,
-    param_version, scan_steps`` and the ratio knobs (see
-    :class:`ApexTrainer`).  ``dispatches`` counts learner calls by kind:
-    ``fused`` (ingest+train), ``train`` (train only), ``ingest`` (ingest
-    only) and ``scan`` (one fused_multi_step of several fused steps).
+    param_version, learner_epoch, scan_steps, checkpointer`` and the ratio
+    knobs (see :class:`ApexTrainer`).  ``dispatches`` counts learner calls
+    by kind: ``fused`` (ingest+train), ``train`` (train only), ``ingest``
+    (ingest only, a merged slot's included) and ``scan`` (one
+    fused_multi_step of several fused steps).
     """
 
     _stop_requested: threading.Event | None = None
-    # log cadence persists across train() calls
+    # log and save cadence persist across train() calls
     _last_log = 0
+    _last_save = 0
     _episode_idx = 0
+    _pipeline: IngestPipeline | None = None
+    _pipeline_base = 0              # ingested count the pipeline began at
+    _pipeline_last_stats: dict | None = None
 
     @property
     def steps(self) -> int:
@@ -103,9 +116,18 @@ class ConcurrentTrainer:
     # -- param plane -------------------------------------------------------
 
     def _publish(self) -> None:
-        """Copy the online weights to the host (one device-to-host sync)
-        and hand them to the pool under the next version."""
+        """Hand the online weights to the pool under the next version.
+        Pipelined: a copy made on the learner's stream (the optimizer
+        updates the weights in place) goes to the staging thread, which
+        waits for it and makes the device-to-host copy.  Serial: the
+        device-to-host copy runs here."""
         self.param_version += 1
+        if self._pipeline is not None:
+            self._pipeline.publish(
+                self.param_version,
+                {name: t.detach().clone() for name, t in
+                 self.train_state.params.state_dict().items()})
+            return
         self.pool.publish_params(self.param_version,
                                  host_params(self.train_state.params))
 
@@ -132,15 +154,35 @@ class ConcurrentTrainer:
     def train(self, total_steps: int, max_seconds: float = 3600.0,
               log_every: int = 200):
         """Run ``total_steps`` more learner updates, or until
-        ``max_seconds`` of wall clock or :meth:`request_stop`.  The pool's
-        workers are started here and stopped, with the chunk segment
-        released, before this returns or raises."""
+        ``max_seconds`` of wall clock or :meth:`request_stop`.  On a
+        restored trainer the step counter continues from the checkpoint.
+        The pool's workers (and the staging thread) are started here and
+        stopped, with the chunk segment released, before this returns or
+        raises."""
         cfg = self.cfg
         pool = self.pool
         target_steps = self.steps_rate.total + total_steps
         gap = self._dispatch_gap = DispatchGapTimer()
-        pool.start()
+        pipeline = None
+        if cfg.learner.ingest_pipeline:
+            pipeline = self._pipeline = IngestPipeline(
+                pool, device=self.device, depth=cfg.learner.pipeline_depth,
+                scan_steps=self.scan_steps,
+                merge_max=cfg.learner.pipeline_merge,
+                state_fn=self._pipeline_state,
+                capacity=self.replay.capacity,
+                frame_capacity=self.replay.f_capacity)
+            self._pipeline_base = self.ingested
         try:
+            pool.start()
+        except BaseException:
+            self._pipeline = None      # never started; publish serially
+            raise
+        try:
+            if pipeline is not None:
+                # the staging thread owns every poll_chunks call from here
+                # to stop()
+                pipeline.start()
             self._publish()
             last_publish = time.monotonic()
             t_end = last_publish + max_seconds
@@ -162,21 +204,35 @@ class ConcurrentTrainer:
                 behind = (warm and floor is not None
                           and steps * self.core.batch_size
                           < self.ingested * floor)
-                # scan dispatch: K chunks only when all K steps fit both
-                # the ratio budget and the remaining total_steps
-                want = 1
-                if (self.scan_steps > 1 and warm
-                        and target_steps - steps >= self.scan_steps
-                        and steps + self.scan_steps - 1 < budget):
-                    want = self.scan_steps
-                msgs = []
-                if not behind:
-                    msgs = pool.poll_chunks(want, timeout=0 if warm else 0.05)
-                if msgs:
-                    m = self._drain_serial(msgs, want, warm, budget)
-                    if m is not None:
-                        metrics = m
-                elif warm and steps < budget:
+                got_data = False
+                if pipeline is not None:
+                    slot = None
+                    if not behind:
+                        slot = pipeline.poll_slot(timeout=0 if warm else 0.05)
+                    if slot is not None:
+                        got_data = True
+                        m = self._consume_slot(slot, warm, budget,
+                                               target_steps)
+                        if m is not None:
+                            metrics = m
+                else:
+                    # scan dispatch: K chunks only when all K steps fit
+                    # both the ratio budget and the remaining total_steps
+                    want = 1
+                    if (self.scan_steps > 1 and warm
+                            and target_steps - steps >= self.scan_steps
+                            and steps + self.scan_steps - 1 < budget):
+                        want = self.scan_steps
+                    msgs = []
+                    if not behind:
+                        msgs = pool.poll_chunks(want,
+                                                timeout=0 if warm else 0.05)
+                    if msgs:
+                        got_data = True
+                        m = self._drain_serial(msgs, want, warm, budget)
+                        if m is not None:
+                            metrics = m
+                if not got_data and warm and steps < budget:
                     gap.about_to_dispatch()
                     self.train_state, self.replay_state, metrics = \
                         self.core.train_step(self.train_state,
@@ -185,10 +241,17 @@ class ConcurrentTrainer:
                     gap.dispatch_returned()
                     self.dispatches["train"] += 1
                     self.steps_rate.tick()
-                elif warm:
+                elif not got_data and warm:
                     time.sleep(0.002)   # replay-ratio cap reached
 
                 steps = self.steps_rate.total
+                # interval since the last save: a scan dispatch can step
+                # over any exact multiple
+                if (self.checkpointer is not None
+                        and steps - self._last_save
+                        >= cfg.learner.save_interval):
+                    self.save_checkpoint()
+                    self._last_save = steps
                 # in-host queues exist before the first publish, so it
                 # cannot be lost: no republish before the first step
                 due = (steps > 0
@@ -208,15 +271,25 @@ class ConcurrentTrainer:
                 self._drain_stats(steps)
 
                 if metrics is not None and steps - self._last_log >= log_every:
+                    extra = gap.snapshot()
+                    if pipeline is not None:
+                        extra |= {f"pipeline_{k}": v
+                                  for k, v in pipeline.stats.items()}
                     self.log.scalars(
                         {k: float(v) for k, v in metrics.items()}
                         | {"bps": self.steps_rate.rate,
                            "fps": self.frames_rate.rate,
                            "param_version": self.param_version,
-                           "ingested": self.ingested} | gap.snapshot(),
+                           "ingested": self.ingested} | extra,
                         steps)
                     self._last_log = steps
         finally:
+            if pipeline is not None:
+                # stop staging before the pool's teardown: the staging
+                # thread is the pool's only chunk consumer while it lives
+                self._pipeline_last_stats = dict(pipeline.stats)
+                pipeline.stop()
+                self._pipeline = None
             pool.cleanup()
             stop = self._stop_requested
             if stop is not None:
@@ -275,7 +348,7 @@ class ConcurrentTrainer:
             "stat_drops": self.stat_drops,
         }
 
-    # -- the serial drain --------------------------------------------------
+    # -- dispatch ----------------------------------------------------------
 
     def _offsets(self, k: int | None = None) -> torch.Tensor:
         """The PER sample's per-stratum uniforms, ``[B]`` or ``[k, B]``."""
@@ -285,60 +358,142 @@ class ConcurrentTrainer:
         return torch.rand((k, b), generator=self.generator,
                           device=self.device, dtype=torch.float32)
 
+    def _dispatch_scan(self, payloads: list, prios: list, n_per) -> dict:
+        """One fused_multi_step over j chunks; each step's beta sees the
+        ingestion through the chunk before it.  Returns the mean metrics."""
+        starts = np.concatenate([[0], np.cumsum(n_per)[:-1]])
+        betas = [self._beta(self.ingested + int(o)) for o in starts]
+        gap = self._dispatch_gap
+        gap.about_to_dispatch()
+        self.train_state, self.replay_state, stacked = \
+            self.core.fused_multi_step(
+                self.train_state, self.replay_state, payloads, prios,
+                self._offsets(len(payloads)), betas)
+        gap.dispatch_returned()
+        self.dispatches["scan"] += 1
+        self.steps_rate.tick(len(payloads))
+        self.ingested += sum(n_per)
+        self.frames_rate.tick(sum(n_per))
+        return {name: v.mean() for name, v in stacked.items()}
+
+    def _dispatch_one(self, payload, prios, n_trans: int, train: bool):
+        """The fused step (``train``) or ingest only, of one payload.
+        Returns the step's metrics or None."""
+        gap = self._dispatch_gap
+        metrics = None
+        gap.about_to_dispatch()
+        if train:
+            self.train_state, self.replay_state, metrics = \
+                self.core.fused_step(
+                    self.train_state, self.replay_state, payload, prios,
+                    self._offsets(), self._beta())
+            self.dispatches["fused"] += 1
+            self.steps_rate.tick()
+        else:
+            self.replay_state = self.core.ingest(self.replay_state, payload,
+                                                 prios)
+            self.dispatches["ingest"] += 1
+        gap.dispatch_returned()
+        self.ingested += n_trans
+        self.frames_rate.tick(n_trans)
+        return metrics
+
     def _drain_serial(self, msgs: list, want: int, warm: bool,
                       budget: float):
         """One poll's chunk messages, in order (``apex.py:1392-1467``).
         With ``want > 1``, the largest power-of-two prefix runs as one
-        fused_multi_step (each step's beta sees the ingestion through the
-        chunk before it) and the rest one by one.  Each single chunk runs
+        fused_multi_step and the rest one by one.  Each single chunk runs
         the fused step when warm and under the ratio cap, else ingest
         only.  Returns the last metrics (device scalars) or None."""
-        gap = self._dispatch_gap
         metrics = None
         if want > 1 and len(msgs) > 1:
             j = _pow2_floor(len(msgs))
             take, msgs = msgs[:j], msgs[j:]
-            n_per = [int(m["n_trans"]) for m in take]
-            starts = np.concatenate([[0], np.cumsum(n_per)[:-1]])
-            betas = [self._beta(self.ingested + int(o)) for o in starts]
-            gap.about_to_dispatch()
-            self.train_state, self.replay_state, stacked = \
-                self.core.fused_multi_step(
-                    self.train_state, self.replay_state,
-                    [m["payload"] for m in take],
-                    [m["priorities"] for m in take], self._offsets(j), betas)
-            gap.dispatch_returned()
-            metrics = {name: v.mean() for name, v in stacked.items()}
-            self.dispatches["scan"] += 1
-            self.steps_rate.tick(j)
-            self.ingested += sum(n_per)
-            self.frames_rate.tick(sum(n_per))
+            metrics = self._dispatch_scan(
+                [m["payload"] for m in take], [m["priorities"] for m in take],
+                [int(m["n_trans"]) for m in take])
         for msg in msgs:
-            n_new = int(msg["n_trans"])
-            gap.about_to_dispatch()
-            if warm and self.steps_rate.total < budget:
-                self.train_state, self.replay_state, metrics = \
-                    self.core.fused_step(
-                        self.train_state, self.replay_state, msg["payload"],
-                        msg["priorities"], self._offsets(), self._beta())
-                self.dispatches["fused"] += 1
-                self.steps_rate.tick()
-            else:
-                self.replay_state = self.core.ingest(
-                    self.replay_state, msg["payload"], msg["priorities"])
-                self.dispatches["ingest"] += 1
-            gap.dispatch_returned()
-            self.ingested += n_new
-            self.frames_rate.tick(n_new)
+            m = self._dispatch_one(
+                msg["payload"], msg["priorities"], int(msg["n_trans"]),
+                warm and self.steps_rate.total < budget)
+            if m is not None:
+                metrics = m
         return metrics
 
     def consume(self, msgs: list[dict]):
         """Chunk messages brought by the caller, one at a time: the
-        single-chunk half of the drain, under the current warm-up and
-        replay-ratio state.  Returns the last step's metrics or None."""
+        single-chunk half of the serial drain, under the current warm-up
+        and replay-ratio state.  Returns the last step's metrics or None."""
         return self._drain_serial(msgs, 1,
                                   self.ingested >= self.cfg.replay.warmup,
                                   self._budget())
+
+    # -- the ingest pipeline -----------------------------------------------
+
+    def _pipeline_state(self) -> PipelineState:
+        """Counter snapshot for the staging thread's grouping
+        (``apex.py:1177-1217``).  ``train_eligible`` is predicted from the
+        pipeline's monotone polled total: when the chunk under
+        consideration reaches the front of the pipeline, ``ingested`` will
+        be exactly that, so the prediction reproduces the serial drain's
+        warm-up gate and a merge group never straddles it.  The budget
+        side counts the train steps already staged ahead of the chunk."""
+        cfg = self.cfg
+        pipe = self._pipeline
+        effective = self._pipeline_base + (0 if pipe is None
+                                           else pipe.polled_total())
+        steps = self.steps_rate.total
+        floor = self.min_train_ratio
+        behind = (self.ingested >= cfg.replay.warmup and floor is not None
+                  and steps * self.core.batch_size < self.ingested * floor)
+        steps_at_front = steps + (0 if pipe is None
+                                  else pipe.staged_train_steps())
+        budget_ok = (self.train_ratio is None
+                     or steps_at_front
+                     < effective * self.train_ratio / self.core.batch_size)
+        return PipelineState(
+            behind=behind,
+            train_eligible=effective >= cfg.replay.warmup and budget_ok)
+
+    def _consume_slot(self, slot, warm: bool, budget: float,
+                      target_steps: int):
+        """Dispatch one staged slot (``apex.py:1317-1390``), gated chunk
+        for chunk as the serial drain gates: an eligible scan slot runs
+        fused_multi_step, an eligible single the fused step, the rest is
+        ingested.  Warm-up and the ratio cap are checked again here, so a
+        stale staging prediction can only under-train.  Returns metrics
+        or None."""
+        if slot.kind == "scan":
+            j = slot.chunks
+            if (warm and self.steps_rate.total + j - 1 < budget
+                    and target_steps - self.steps_rate.total >= j):
+                return self._dispatch_scan(slot.payload, slot.prios,
+                                           slot.n_per)
+            for payload, prios, n in zip(slot.payload, slot.prios,
+                                         slot.n_per):
+                self._dispatch_one(payload, prios, n, False)
+            return None
+        train = (slot.kind == "single" and warm
+                 and self.steps_rate.total < budget)
+        return self._dispatch_one(slot.payload, slot.prios, slot.n_trans,
+                                  train)
+
+    # -- checkpointing (apex.py:1473-1489) ---------------------------------
+
+    def _counters(self) -> dict:
+        return dict(ingested=self.ingested, steps=self.steps_rate.total,
+                    param_version=self.param_version,
+                    learner_epoch=self.learner_epoch)
+
+    def _apply_counters(self, meta: dict) -> None:
+        self.ingested = meta["ingested"]
+        self.steps_rate.total = meta["steps"]
+        self.param_version = meta["param_version"]
+        # restoring starts a new learner life (the JAX trainer's fencing
+        # epoch; nothing in the port reads it yet)
+        self.learner_epoch = int(meta.get("learner_epoch", 1)) + 1
+        # a restored trainer owes no immediate save or log
+        self._last_save = self._last_log = meta["steps"]
 
 
 class ApexTrainer(ConcurrentTrainer):
@@ -355,7 +510,9 @@ class ApexTrainer(ConcurrentTrainer):
     ``device`` defaults to the card and raises without one unless
     ``"cpu"`` is asked for; the actors always act on the CPU.
     ``respawn_workers`` restarts crashed workers every 5 s; ``logdir``
-    and ``verbose`` go to the :class:`MetricLogger`.
+    and ``verbose`` go to the :class:`MetricLogger`; ``checkpoint_dir``
+    turns on the saves of :meth:`train` and names where
+    :meth:`save_checkpoint` writes.
     """
 
     def __init__(self, config: ApexConfig | None = None, pool=None,
@@ -364,7 +521,8 @@ class ApexTrainer(ConcurrentTrainer):
                  logdir: str | None = None, verbose: bool = False,
                  publish_min_seconds: float = 0.2,
                  min_train_ratio: float | None = None,
-                 respawn_workers: bool = True):
+                 respawn_workers: bool = True,
+                 checkpoint_dir: str | None = None):
         self.device = resolve_device(device)
         self.cfg = cfg = config or ApexConfig()
         if (train_ratio is not None and min_train_ratio is not None
@@ -421,6 +579,9 @@ class ApexTrainer(ConcurrentTrainer):
         self.frames_rate = RateCounter()
         self.ingested = 0
         self.param_version = 0
+        self.learner_epoch = 1
+        self.checkpointer = (Checkpointer(checkpoint_dir)
+                             if checkpoint_dir else None)
         self.dispatches = {"fused": 0, "train": 0, "ingest": 0, "scan": 0}
         self._dispatch_gap = DispatchGapTimer()    # train() starts a fresh one
         self.actor_timing: dict = {}
@@ -434,16 +595,7 @@ class ApexTrainer(ConcurrentTrainer):
         if not hasattr(self, "_eval_env"):
             self._eval_env = make_eval_env(self.cfg.env.env_id, self.cfg.env,
                                            seed=self.cfg.env.seed + 999)
-        rewards = []
-        for ep in range(episodes):
-            obs, _ = self._eval_env.reset(seed=self.cfg.env.seed + 1000 + ep)
-            total, done, steps = 0.0, False, 0
-            while not done and steps < max_steps:
-                a, _ = self.policy(torch.as_tensor(obs[None]).to(self.device),
-                                   epsilon, self.generator)
-                obs, r, term, trunc, _ = self._eval_env.step(int(a[0]))
-                total += float(r)
-                done = term or trunc
-                steps += 1
-            rewards.append(total)
+        rewards = run_policy_episodes(
+            self._eval_env, self.policy, self.generator, episodes, epsilon,
+            max_steps, seed_base=self.cfg.env.seed + 1000)
         return float(np.mean(rewards))

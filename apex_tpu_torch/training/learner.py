@@ -4,8 +4,10 @@ periodic target sync -> priority write-back.
 Counterpart of :mod:`apex_tpu.training.learner`.  JAX compiles the fused
 step into one XLA program over donated buffers; here it runs eagerly on
 the card, updating the replay and train state in place (no copies of the
-ring, the trees or the weights).  The only kernel of the step written by
-hand is the frame-ring gather inside
+ring, the trees or the weights).  The replay is either the frame pool of
+the Ape-X trainer or the stacked :class:`~apex_tpu_torch.replay.device.
+DeviceReplay` of the DQN driver (:func:`build_learner`).  The only kernel
+of the step written by hand is the frame-ring gather inside
 :meth:`~apex_tpu_torch.replay.frame_pool.FramePoolReplay.sample`.
 
 Where the JAX step takes a PRNG key, these take ``offsets``: the
@@ -17,11 +19,18 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
+from torch import nn
 
-from apex_tpu_torch.ops.losses import ClipRMSprop, double_dqn_loss
+from apex_tpu_torch.ops.losses import (ClipRMSprop, double_dqn_loss,
+                                       make_optimizer)
+from apex_tpu_torch.replay.base import check_hbm_budget
+from apex_tpu_torch.replay.device import DeviceReplay, ReplayState
 from apex_tpu_torch.replay.frame_pool import FramePoolReplay, FramePoolState
-from apex_tpu_torch.training.state import TrainState
+from apex_tpu_torch.training.state import TrainState, create_train_state
+
+ReplayStates = FramePoolState | ReplayState
 
 
 @dataclass(frozen=True)
@@ -29,7 +38,7 @@ class LearnerCore:
     """Static wiring of replay and optimizer into the step functions; the
     networks travel in the :class:`TrainState`."""
 
-    replay: FramePoolReplay
+    replay: FramePoolReplay | DeviceReplay
     optimizer: ClipRMSprop
     batch_size: int = 512
     target_update_interval: int = 2500
@@ -45,7 +54,7 @@ class LearnerCore:
         return td_update(self.optimizer, self.target_update_interval,
                          train_state, loss_fn)
 
-    def train_step(self, train_state: TrainState, replay_state: FramePoolState,
+    def train_step(self, train_state: TrainState, replay_state: ReplayStates,
                    offsets: torch.Tensor, beta: float):
         """Sample -> loss -> update -> priorities."""
         batch, weights, idx = self.replay.sample(replay_state, offsets, beta)
@@ -55,11 +64,11 @@ class LearnerCore:
                                                      priorities)
         return train_state, replay_state, metrics
 
-    def ingest(self, replay_state: FramePoolState, chunk: dict,
-               priorities) -> FramePoolState:
+    def ingest(self, replay_state: ReplayStates, chunk: dict,
+               priorities) -> ReplayStates:
         return self.replay.add(replay_state, chunk, priorities)
 
-    def fused_step(self, train_state: TrainState, replay_state: FramePoolState,
+    def fused_step(self, train_state: TrainState, replay_state: ReplayStates,
                    chunk: dict, priorities, offsets: torch.Tensor,
                    beta: float):
         """Ingest + train: the Ape-X learner inner loop."""
@@ -67,7 +76,7 @@ class LearnerCore:
         return self.train_step(train_state, replay_state, offsets, beta)
 
     def fused_multi_step(self, train_state: TrainState,
-                         replay_state: FramePoolState, chunks: list,
+                         replay_state: ReplayStates, chunks: list,
                          priorities: list, offsets: torch.Tensor, betas):
         """K fused steps in a row (``offsets`` ``[K, B]``, ``betas`` a
         scalar or K values); the JAX ``lax.scan`` dispatch becomes a loop.
@@ -112,3 +121,41 @@ def td_update(optimizer: ClipRMSprop, target_update_interval: int,
         "td_mean": aux.td_abs.mean(),
     }
     return train_state, aux.priorities, metrics
+
+
+def build_learner(model: nn.Module, replay_capacity: int,
+                  example_obs: np.ndarray, *, alpha: float = 0.6,
+                  batch_size: int = 512, lr: float = 6.25e-5,
+                  max_grad_norm: float = 40.0, rmsprop_decay: float = 0.95,
+                  rmsprop_eps: float = 1.5e-7, rmsprop_centered: bool = True,
+                  replay_eps: float = 1e-6,
+                  target_update_interval: int = 2500,
+                  lr_decay_steps: int | None = 1000,
+                  lr_decay_rate: float = 0.99,
+                  hbm_budget_gb: float | None = None
+                  ) -> tuple[LearnerCore, TrainState, ReplayState]:
+    """The DQN driver's learner (``apex_tpu/training/learner.py:224-260``):
+    ``model`` (initialized, on its device) wrapped in a train state, and a
+    :class:`DeviceReplay` on the same device whose rows are shaped like
+    ``example_obs[0]``."""
+    optimizer = make_optimizer(lr=lr, decay=rmsprop_decay, eps=rmsprop_eps,
+                               centered=rmsprop_centered,
+                               max_grad_norm=max_grad_norm,
+                               lr_decay_steps=lr_decay_steps,
+                               lr_decay_rate=lr_decay_rate)
+    train_state = create_train_state(model, optimizer)
+    replay = DeviceReplay(capacity=replay_capacity, alpha=alpha,
+                          eps=replay_eps)
+    obs = np.zeros(example_obs.shape[1:], example_obs.dtype)
+    example_item = dict(obs=obs, action=np.int32(0), reward=np.float32(0),
+                        next_obs=obs, discount=np.float32(0))
+    device = next(model.parameters()).device
+    if hbm_budget_gb is not None:
+        check_hbm_budget(replay.hbm_bytes(example_item), hbm_budget_gb,
+                         "replay (stacked obs storage)", replay_capacity,
+                         device)
+    replay_state = replay.init(example_item, device)
+    core = LearnerCore(replay=replay, optimizer=optimizer,
+                       batch_size=batch_size,
+                       target_update_interval=target_update_interval)
+    return core, train_state, replay_state

@@ -24,19 +24,36 @@ Phases, each of which exits nonzero on failure before any result line:
    4 spawned actor processes x 8 envs acting on the CPU (32 ladder
    slots, 64-transition chunks) feeding the learner on the card over the
    shared-memory chunk ring, at the geometry of phase 4 with a
-   4096-transition warm-up, for 100 learner steps.  Checks the steps, the
-   ring, the param publishes the actors acted on, one ``gather_stacks``
-   launch per learner step and no ``gather_rows``, finite metrics, the
-   sum tree, and that no actor process and no segment outlive
-   ``train()``; prints the dispatch counts, learner steps/s, env
-   frames/s, the actors' phase fractions and peak memory.  Then, in this
-   process at a worker's thread count, one worker's vector family times
-   its serial interleave against a helper-thread overlap of its two
-   half-groups, with a bf16 and an f32 policy.
+   4096-transition warm-up, for 100 learner steps: first with its default
+   ingest pipeline, then with the serial drain, printed side by side.
+   Checks the steps, the ring, the param publishes the actors acted on,
+   one ``gather_stacks`` launch per learner step and no ``gather_rows``,
+   finite metrics, the sum tree, that no actor process and no segment
+   outlive ``train()`` and, pipelined, merged warm-up slots and publishes
+   through the staging thread; prints the dispatch counts, learner
+   steps/s, env frames/s, the actors' phase fractions and peak memory.
+   Then, in this process at a worker's thread count, one worker's vector
+   family times its serial interleave against a helper-thread overlap of
+   its two half-groups, with a bf16 and an f32 policy.
+6. pipeline -- phase 4's chunks through ``train()`` from a list pool,
+   pipeline on and off in turns (on, off, off, on) under deterministic
+   cuDNN: the same dispatches and bit-equal weights, optimizer, replay
+   and generator; host ms per fused step, the staging thread's time per
+   slot, and the host cost of the pieces of staging one chunk.
+7. checkpoint -- a trainer at capacity 2^16 (a 2^17-row ring, to bound
+   the disk) takes 4 steps and saves; a fresh trainer restores; both
+   take 4 more steps, bit-equal; ``evaluate_checkpoint`` scores the file
+   with no trainer.  Prints the file's bytes and the save and restore
+   seconds, and removes the directory.
+8. dqn      -- ``DQNTrainer`` on ``ApexCartPole-v0`` at the model spec's
+   widths for 2048 frames (warm-up 512, an update every 4 frames, batch
+   512, autosaves every 100 updates): finite metrics, the autosaves;
+   prints frames/s and updates/s.
 
 Then it prints the card's name and power limit, one ``{"kernels": ...}``
-line (``launches`` counts phase 5, the system's entry point;
-``launches_by_path`` adds phase 4's consume path) and, last,
+line (``launches`` counts phase 5's pipelined ``train()``, the system's
+entry point; ``launches_by_path`` adds the serial drain, phase 4's
+consume path and phases 6-8) and, last,
 ``{"ok": true, "device": {...}}``.  It needs one card
 and exits nonzero without one.  ``--profile DIR`` also traces a few more
 fused steps with ``torch.profiler``, writes device time by op and by
@@ -545,7 +562,8 @@ def slice_phase(dev, gather, profile_dir: str | None = None) -> dict:
         f"gather launches {launches}, target syncs {synced}")
     if profiled:
         profile_steps(trainer, profiled, profile_dir)
-    return dict(launches=launches, ms_per_step=ms, peak_bytes=peak)
+    return dict(launches=launches, ms_per_step=ms, peak_bytes=peak,
+                msgs=msgs)
 
 
 # -- phase 5: train() with actor processes ---------------------------------
@@ -563,7 +581,9 @@ def _finite_logged(trainer) -> int:
     return n
 
 
-def train_phase(dev, gather) -> dict:
+def train_phase(dev, gather, pipelined: bool) -> dict:
+    """``ApexTrainer.train`` with actor processes, with the default ingest
+    pipeline (``pipelined``) or the serial drain."""
     from apex_tpu_torch.config import (ActorConfig, ApexConfig, EnvConfig,
                                        LearnerConfig, ReplayConfig)
     from apex_tpu_torch.native.ring import SEGMENT_PREFIX
@@ -572,16 +592,19 @@ def train_phase(dev, gather) -> dict:
     cfg = ApexConfig(
         env=EnvConfig(env_id="ApexCatch-v0", seed=SEED),
         replay=ReplayConfig(capacity=CAPACITY, warmup=TRAIN_WARMUP),
-        learner=LearnerConfig(batch_size=BATCH, target_update_interval=500),
+        learner=LearnerConfig(batch_size=BATCH, target_update_interval=500,
+                              ingest_pipeline=pipelined),
         actor=ActorConfig(n_actors=N_ACTORS, n_envs_per_actor=ENVS_PER_ACTOR,
                           send_interval=SEND_INTERVAL, timing_interval=32))
+    what = "train" if pipelined else "train (serial drain)"
     torch.cuda.reset_peak_memory_stats(dev)
-    trainer = ApexTrainer(cfg, device=dev, publish_min_seconds=0.5)
+    trainer = ApexTrainer(cfg, publish_min_seconds=0.5)   # on "cuda"
     pool = trainer.pool
-    log(f"train: {N_ACTORS} actor processes x {ENVS_PER_ACTOR} envs, "
+    log(f"{what}: {N_ACTORS} actor processes x {ENVS_PER_ACTOR} envs, "
         f"{pool.threads} torch threads each, chunks of {SEND_INTERVAL} "
         f"transitions, warm-up {TRAIN_WARMUP}, batch {BATCH}, capacity "
-        f"{CAPACITY}, ring {trainer.replay.f_capacity} rows")
+        f"{CAPACITY}, ring {trainer.replay.f_capacity} rows, ingest "
+        f"pipeline {cfg.learner.ingest_pipeline}")
     for name in gather.LAUNCH_COUNTS:                 # main path starts
         gather.LAUNCH_COUNTS[name] = 0
     t0 = time.perf_counter()
@@ -592,47 +615,56 @@ def train_phase(dev, gather) -> dict:
     launches = dict(gather.LAUNCH_COUNTS)             # main path ends
 
     check(trainer.steps == LOOP_STEPS,
-          f"train: {trainer.steps} learner steps in {wall:.1f} s, want "
+          f"{what}: {trainer.steps} learner steps in {wall:.1f} s, want "
           f"{LOOP_STEPS} within {LOOP_SECONDS} s")
     check(pool.chunk_plane == "shm",
-          f"train: chunks rode {pool.chunk_plane}, not the shm ring")
+          f"{what}: chunks rode {pool.chunk_plane}, not the shm ring")
     check(trainer.param_version >= 2,
-          f"train: {trainer.param_version} param publishes")
+          f"{what}: {trainer.param_version} param publishes")
     versions = [v for _, v in
                 trainer.log.history.get("learner/episode_param_version", [])]
     check(bool(versions) and min(versions) > 0,
-          f"train: episode stats' param versions {versions[:8]}")
+          f"{what}: episode stats' param versions {versions[:8]}")
     check(launches == {"gather_rows": 0, "gather_stacks": trainer.steps},
-          f"train: gather launches {launches} in {trainer.steps} steps")
+          f"{what}: gather launches {launches} in {trainer.steps} steps")
+    stats = trainer._pipeline_last_stats
+    if pipelined:
+        # the warm-up's 64 ingest-only chunks merge; publishes ride the
+        # staging thread
+        check(stats is not None and stats["slots"] > 0
+              and stats["merged_chunks"] >= 2 and stats["publishes"] >= 1,
+              f"{what}: pipeline stats {stats}")
+    else:
+        check(stats is None, f"{what}: the serial drain staged {stats}")
     n_logged = _finite_logged(trainer)
-    check(n_logged > 0, "train: no learner metrics logged")
+    check(n_logged > 0, f"{what}: no learner metrics logged")
     rs, c = trainer.replay_state, trainer.replay.capacity
     leaves = rs.sum_tree[c:c + rs.size]
     root, total = rs.sum_tree[1].item(), leaves.double().sum().item()
     check(bool(torch.isfinite(leaves).all()) and bool((leaves > 0).all()),
-          "train: non-finite or non-positive priorities")
+          f"{what}: non-finite or non-positive priorities")
     check(abs(root - total) <= 1e-5 * total,
-          f"train: sum-tree root {root} != sum of leaves {total}")
+          f"{what}: sum-tree root {root} != sum of leaves {total}")
     alive = [p.pid for p in pool.procs if p.is_alive()]
-    check(not alive, f"train: actor processes {alive} outlived train()")
+    check(not alive, f"{what}: actor processes {alive} outlived train()")
     left = [f for f in os.listdir("/dev/shm")
             if f.startswith(f"{SEGMENT_PREFIX}-{os.getpid()}-")]
-    check(not left, f"train: segments left in /dev/shm: {left}")
+    check(not left, f"{what}: segments left in /dev/shm: {left}")
 
     peak = torch.cuda.max_memory_allocated(dev)
     plane = trainer.actor_plane()
-    check(plane is not None, "train: no actor reported its timing")
-    log(f"train: {trainer.steps} learner steps in {wall:.3f} s of train(); "
+    check(plane is not None, f"{what}: no actor reported its timing")
+    log(f"{what}: {trainer.steps} learner steps in {wall:.3f} s of train(); "
         f"dispatches {trainer.dispatches}; {trainer.ingested} transitions "
         f"ingested; param_version {trainer.param_version}; "
         f"{len(versions)} episodes drained, param versions "
-        f"{min(versions)}..{max(versions)}")
-    log(f"train: learner steps/s {trainer.steps_rate.rate:.3f} (last "
+        f"{min(versions)}..{max(versions)}; pipeline stats {stats}")
+    log(f"{what}: learner steps/s {trainer.steps_rate.rate:.3f} (last "
         f"{min(100, trainer.steps)} steps), env frames/s ingested "
-        f"{trainer.frames_rate.rate:.1f} (last 100 chunks), "
+        f"{trainer.frames_rate.rate:.1f} (last 100 dispatches), "
         f"{trainer.ingested / wall:.1f} over train(); actors report "
         f"{plane['frames_per_sec_sum']:.1f} frames/s in all")
-    log(f"train: actor phases policy_wait {plane['policy_wait_frac']:.4f} "
+    log(f"{what}: actor phases policy_wait {plane['policy_wait_frac']:.4f} "
         f"env_step {plane['env_step_frac']:.4f} drain "
         f"{plane['drain_frac']:.4f} (mean of {plane['workers_reporting']} "
         f"workers, double_buffer {plane['double_buffer']}), stat drops "
@@ -640,7 +672,11 @@ def train_phase(dev, gather) -> dict:
         f"{trainer._dispatch_gap.snapshot()}; peak memory "
         f"{peak / 2**30:.3f} GiB; {n_logged} logged metrics finite; "
         f"gather launches {launches}; no actor alive, no segment left")
-    return dict(launches=launches, wall=wall, threads=pool.threads)
+    return dict(launches=launches, wall=wall, threads=pool.threads,
+                steps_per_s=trainer.steps_rate.rate,
+                frames_per_s=trainer.frames_rate.rate,
+                frames_over_train=trainer.ingested / wall,
+                dispatches=dict(trainer.dispatches))
 
 
 def _overlapped_step(family, helper, seed: int) -> None:
@@ -723,6 +759,339 @@ def actor_phase(threads: int) -> None:
         torch.set_num_threads(saved)
 
 
+# -- phase 6: the pipeline at full width -----------------------------------
+
+class ListPool:
+    """Phase 4's chunk list as a pool: every chunk ready from the start, an
+    empty poll waits out its timeout as a real queue's does."""
+
+    def __init__(self, msgs):
+        self._msgs = list(msgs)
+        self.procs = []
+
+    def start(self):
+        pass
+
+    def cleanup(self):
+        pass
+
+    def publish_params(self, version, params):
+        pass
+
+    def poll_stats(self):
+        return []
+
+    def poll_chunks(self, max_chunks, timeout=0.0):
+        out, self._msgs = self._msgs[:max_chunks], self._msgs[max_chunks:]
+        if not out and timeout:
+            time.sleep(timeout)
+        return out
+
+
+def _full_width_cfg(pipelined: bool, capacity: int = CAPACITY):
+    from apex_tpu_torch.config import (ActorConfig, ApexConfig, EnvConfig,
+                                       LearnerConfig, ReplayConfig)
+    chunk = 512
+    return ApexConfig(
+        env=EnvConfig(env_id="ApexCatch-v0", seed=SEED),
+        replay=ReplayConfig(capacity=capacity,
+                            warmup=WARMUP_CHUNKS * chunk),
+        learner=LearnerConfig(batch_size=BATCH,
+                              target_update_interval=TARGET_INTERVAL,
+                              ingest_pipeline=pipelined),
+        actor=ActorConfig(send_interval=chunk))
+
+
+def _learners_equal(a, b, what: str) -> None:
+    """Params, target, optimizer state, replay state and the generator
+    of two trainers, bit for bit."""
+    import dataclasses
+
+    ta, tb = a.train_state, b.train_state
+    for mod_a, mod_b in ((ta.params, tb.params),
+                         (ta.target_params, tb.target_params)):
+        for (name, x), y in zip(mod_a.state_dict().items(),
+                                mod_b.state_dict().values()):
+            check(torch.equal(x, y), f"{what}: weights {name} differ")
+    check((ta.step, ta.opt_state.count) == (tb.step, tb.opt_state.count),
+          f"{what}: step counts differ")
+    for x, y in zip(ta.opt_state.mu + ta.opt_state.nu,
+                    tb.opt_state.mu + tb.opt_state.nu):
+        check(torch.equal(x, y), f"{what}: optimizer moments differ")
+    for f in dataclasses.fields(a.replay_state):
+        x, y = getattr(a.replay_state, f.name), getattr(b.replay_state,
+                                                        f.name)
+        same = torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+        check(same, f"{what}: replay field {f.name} differs")
+    check(torch.equal(a.generator.get_state(), b.generator.get_state()),
+          f"{what}: generator states differ")
+
+
+def pipeline_phase(dev, gather, msgs: list) -> dict:
+    """Phase 4's chunks (8 warm-up + 24 of 512 transitions, 528 x 7056 B
+    frames) through ``train()`` from a list pool, pipeline on and off in
+    turns (on, off, off, on), from the same weights and seeds under
+    deterministic cuDNN: the same dispatches, and bit-equal replay,
+    weights and optimizer state.  Times the host interval between fused
+    steps, and the staging thread's wall and CPU time per slot."""
+    from apex_tpu_torch.training.apex import ApexTrainer
+    from apex_tpu_torch.training.ingest_pipeline import IngestPipeline
+
+    staging, copies = [], []
+    build_slot = IngestPipeline._build_slot
+    copy_to_device = IngestPipeline._copy_to_device
+
+    def timed_build(self, first, st):
+        wall, cpu, n = time.perf_counter(), time.thread_time(), len(copies)
+        slot = build_slot(self, first, st)
+        staging.append((time.perf_counter() - wall,
+                        time.thread_time() - cpu,
+                        sum(w for w, _ in copies[n:]),
+                        sum(c for _, c in copies[n:])))
+        return slot
+
+    def timed_copy(self, arrays, slot):
+        wall, cpu = time.perf_counter(), time.thread_time()
+        copy_to_device(self, arrays, slot)
+        copies.append((time.perf_counter() - wall, time.thread_time() - cpu))
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    IngestPipeline._build_slot = timed_build
+    IngestPipeline._copy_to_device = timed_copy
+    runs = {"pipelined": [], "serial": []}
+    try:
+        for turn, name in enumerate(("pipelined", "serial", "serial",
+                                     "pipelined")):
+            pipelined = name == "pipelined"
+            trainer = ApexTrainer(_full_width_cfg(pipelined),
+                                  pool=ListPool(msgs), device=dev,
+                                  respawn_workers=False)
+            starts = []
+            fused = trainer.core.fused_step
+
+            def timed(*args, fused=fused, starts=starts):
+                starts.append(time.perf_counter())
+                return fused(*args)
+
+            object.__setattr__(trainer.core, "fused_step", timed)
+            staging.clear()
+            copies.clear()
+            for key in gather.LAUNCH_COUNTS:          # this path starts
+                gather.LAUNCH_COUNTS[key] = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.train(total_steps=TRAIN_STEPS, max_seconds=60.0)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(gather.LAUNCH_COUNTS)     # this path ends
+            check(trainer.steps == TRAIN_STEPS == len(starts),
+                  f"pipeline {name}: {trainer.steps} steps, "
+                  f"{len(starts)} fused")
+            check(launches == {"gather_rows": 0,
+                               "gather_stacks": TRAIN_STEPS},
+                  f"pipeline {name}: gather launches {launches}")
+            ms = (starts[-1] - starts[2]) / (len(starts) - 3) * 1e3
+            stage = ""
+            if pipelined:
+                singles = staging[1:]              # the merged warm-up first
+                mean = [1e3 * statistics.mean(x[i] for x in singles)
+                        for i in range(4)]
+                stage = (f"; staging per single slot {mean[0]:.3f} ms wall, "
+                         f"{mean[1]:.3f} ms CPU, of which packing into "
+                         f"pinned memory and the copy's launch "
+                         f"{mean[2]:.3f} ms wall, {mean[3]:.3f} ms CPU "
+                         f"(merged warm-up slot "
+                         f"{1e3 * staging[0][0]:.3f} ms wall)")
+            runs[name].append(dict(ms=ms, wall=wall, launches=launches))
+            log(f"pipeline {name}: {trainer.steps} fused steps, dispatches "
+                f"{trainer.dispatches}, pipeline stats "
+                f"{trainer._pipeline_last_stats}; host interval between "
+                f"fused steps 3..{TRAIN_STEPS} {ms:.3f} ms/step; train() "
+                f"{wall:.3f} s{stage}")
+            if turn == 0:
+                piped = trainer
+            elif turn == 1:
+                check(piped.dispatches == dict(trainer.dispatches, ingest=1),
+                      f"pipeline: dispatches {piped.dispatches} vs serial "
+                      f"{trainer.dispatches} (the warm-up's 8 chunks merge "
+                      f"into 1)")
+                check(piped._pipeline_last_stats["merged_chunks"]
+                      == WARMUP_CHUNKS,
+                      f"pipeline: stats {piped._pipeline_last_stats}")
+                _learners_equal(piped, trainer, "pipeline on vs off")
+                log(f"pipeline: on and off bit-equal after {TRAIN_STEPS} "
+                    f"fused steps (weights, target, optimizer, replay, "
+                    f"generator)")
+                del piped
+            del trainer
+            torch.cuda.empty_cache()
+    finally:
+        IngestPipeline._build_slot = build_slot
+        IngestPipeline._copy_to_device = copy_to_device
+        torch.backends.cudnn.deterministic = deterministic
+    log("pipeline: host ms per fused step in turns (on, off, off, on): "
+        f"pipelined {[round(r['ms'], 3) for r in runs['pipelined']]}, "
+        f"serial {[round(r['ms'], 3) for r in runs['serial']]}")
+    staging_costs(dev, msgs[WARMUP_CHUNKS]["payload"]["frames"])
+    return {name: r[0] for name, r in runs.items()}
+
+
+def staging_costs(dev, frames) -> None:
+    """Host time of the pieces of staging one chunk's frame rows, alone on
+    the learner's thread: a plain host copy, ``pin_memory()`` (the
+    pipeline's copy into pinned memory), a copy into a pinned buffer made
+    once, and the host-to-device copy from pinned and from pageable
+    memory (each followed by a synchronise).  Median of 10."""
+    import numpy as _np
+
+    def median_ms(fn, n=10):
+        fn()
+        times = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    src = torch.as_tensor(frames)
+    pinned = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+
+    def h2d(t):
+        t.to(dev, non_blocking=True)
+        torch.cuda.synchronize()
+
+    ms = {"host copy (numpy)": median_ms(lambda: frames.copy()),
+          "pin_memory()": median_ms(lambda: src.pin_memory()),
+          "copy into a pinned buffer": median_ms(
+              lambda: _np.copyto(pinned.numpy(), frames)),
+          "to the card from pinned": median_ms(lambda: h2d(pinned)),
+          "to the card from pageable": median_ms(lambda: h2d(src))}
+    log(f"staging costs for one chunk's {frames.nbytes} B of frames "
+        f"({torch.get_num_threads()} torch threads): " + "; ".join(
+            f"{k} {v:.3f} ms ({frames.nbytes / v / 1e6:.2f} GB/s)"
+            for k, v in ms.items()))
+
+
+# -- phase 7: checkpoint -----------------------------------------------------
+
+CHECKPOINT_CAPACITY = 2 ** 16    # ring 2^17 x 7056 B, about 0.9 GiB on disk
+
+
+def checkpoint_phase(dev, gather, msgs: list) -> dict:
+    """Save a trainer that took a few steps, restore it into a fresh one,
+    take the same 4 consume steps on both (bit-equal under deterministic
+    cuDNN), and evaluate the file without a trainer."""
+    import tempfile
+
+    from apex_tpu_torch.training.apex import ApexTrainer
+    from apex_tpu_torch.training.checkpoint import evaluate_checkpoint
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    for key in gather.LAUNCH_COUNTS:                  # this path starts
+        gather.LAUNCH_COUNTS[key] = 0
+    try:
+        with tempfile.TemporaryDirectory(prefix="apex-ckpt-") as tmp:
+            cfg = _full_width_cfg(True, CHECKPOINT_CAPACITY)
+            t1 = ApexTrainer(cfg, pool=ListPool([]), device=dev,
+                             checkpoint_dir=tmp)
+            for msg in msgs[:WARMUP_CHUNKS + 4]:
+                t1.consume([msg])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            path = t1.save_checkpoint()
+            save_s = time.perf_counter() - t0
+            size = os.path.getsize(path)
+            t2 = ApexTrainer(cfg, pool=ListPool([]), device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            t2.restore(path)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            check(t2.steps == t1.steps == 4,
+                  f"checkpoint: steps {t1.steps} saved, {t2.steps} restored")
+            _learners_equal(t1, t2, "checkpoint: restored")
+            for trainer in (t1, t2):
+                for msg in msgs[WARMUP_CHUNKS + 4:WARMUP_CHUNKS + 8]:
+                    trainer.consume([msg])
+            _learners_equal(t1, t2, "checkpoint: 4 steps after restore")
+            score = evaluate_checkpoint(path, episodes=2, max_steps=500,
+                                        device=dev)
+            check(math.isfinite(score), f"checkpoint: eval score {score}")
+        launches = dict(gather.LAUNCH_COUNTS)         # this path ends
+        check(launches["gather_stacks"] == 12 and launches["gather_rows"] == 0,
+              f"checkpoint: gather launches {launches}")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    log(f"checkpoint: capacity {CHECKPOINT_CAPACITY}, ring "
+        f"{t1.replay.f_capacity} rows; file {size} bytes; save "
+        f"{save_s:.3f} s, restore {restore_s:.3f} s; restored and saved "
+        f"trainers bit-equal over 4 more steps; evaluate_checkpoint score "
+        f"{score} (2 episodes); directory removed")
+    del t1, t2
+    torch.cuda.empty_cache()
+    return dict(launches=launches, bytes=size, save_s=save_s,
+                restore_s=restore_s)
+
+
+# -- phase 8: the DQN driver -------------------------------------------------
+
+DQN_FRAMES = 2048
+
+
+def dqn_phase(gather) -> dict:
+    """``DQNTrainer`` on ``ApexCartPole-v0`` at the model spec's widths
+    (128-unit trunk and heads, bf16 compute, batch 512): warm-up 512,
+    one update every 4 frames, autosaves every 100 updates."""
+    import tempfile
+
+    from apex_tpu_torch.config import (ApexConfig, EnvConfig, LearnerConfig,
+                                       ReplayConfig)
+    from apex_tpu_torch.training.dqn import DQNTrainer
+
+    cfg = ApexConfig(env=EnvConfig(env_id="ApexCartPole-v0", seed=SEED,
+                                   frame_stack=1),
+                     replay=ReplayConfig(warmup=512),
+                     learner=LearnerConfig(save_interval=100))
+    for key in gather.LAUNCH_COUNTS:                  # this path starts
+        gather.LAUNCH_COUNTS[key] = 0
+    with tempfile.TemporaryDirectory(prefix="apex-dqn-") as tmp:
+        trainer = DQNTrainer(cfg, train_every=4, checkpoint_dir=tmp)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train(total_frames=DQN_FRAMES, log_every=50)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        saved = sorted(os.listdir(tmp))
+    launches = dict(gather.LAUNCH_COUNTS)             # this path ends
+    steps = trainer.steps_rate.total
+    check(trainer.frames_rate.total == DQN_FRAMES and steps > 0,
+          f"dqn: {trainer.frames_rate.total} frames, {steps} steps")
+    check(trainer.train_state.step == steps, "dqn: train state step count")
+    n_logged = 0
+    for name in ("loss", "grad_norm", "q_mean", "td_mean"):
+        values = [v for _, v in trainer.log.history.get(f"learner/{name}",
+                                                        [])]
+        check(bool(values) and all(math.isfinite(v) for v in values),
+              f"dqn: {name} logged {values[:4]}")
+        n_logged += len(values)
+    want = [f"ckpt_{k}.pt" for k in range(100, steps + 1, 100)][-3:]
+    check(saved == sorted(want), f"dqn: checkpoints {saved}, want {want}")
+    check(launches == {"gather_rows": 0, "gather_stacks": 0},
+          f"dqn: gather launches {launches} (the stacked replay indexes)")
+    episodes = [v for _, v in trainer.log.history.get(
+        "learner/episode_reward", [])]
+    log(f"dqn: {DQN_FRAMES} frames and {steps} updates (batch "
+        f"{cfg.learner.batch_size}, {trainer.model_spec['compute_dtype']}) "
+        f"in {wall:.3f} s: {DQN_FRAMES / wall:.1f} frames/s, "
+        f"{steps / wall:.2f} updates/s over the run; {n_logged} logged "
+        f"metrics finite; autosaves {saved}; {len(episodes)} episodes, mean "
+        f"reward {statistics.mean(episodes) if episodes else 0.0:.2f}")
+    return dict(launches=launches, frames_per_s=DQN_FRAMES / wall,
+                steps_per_s=steps / wall)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR",
@@ -748,15 +1117,33 @@ def main() -> int:
     rows = kernel_phase(dev, gather, card, args.parent)
     reference_phase(dev)
     result = slice_phase(dev, gather, args.profile)
-    loop = train_phase(dev, gather)
+    msgs = result.pop("msgs")
+    torch.cuda.empty_cache()
+    loop = train_phase(dev, gather, pipelined=True)
+    serial = train_phase(dev, gather, pipelined=False)
+    log("train: pipelined vs serial drain, learner steps/s "
+        f"{loop['steps_per_s']:.3f} vs {serial['steps_per_s']:.3f}; env "
+        f"frames/s ingested (last 100 dispatches) {loop['frames_per_s']:.1f} "
+        f"vs {serial['frames_per_s']:.1f}, over train() "
+        f"{loop['frames_over_train']:.1f} vs "
+        f"{serial['frames_over_train']:.1f}; dispatches "
+        f"{loop['dispatches']} vs {serial['dispatches']}; wall "
+        f"{loop['wall']:.3f} s vs {serial['wall']:.3f} s")
     actor_phase(loop["threads"])
+    full = pipeline_phase(dev, gather, msgs)
+    saved = checkpoint_phase(dev, gather, msgs)
+    dqn = dqn_phase(gather)
+    paths = {"train": loop["launches"], "train_serial": serial["launches"],
+             "consume": result["launches"],
+             "full_width_pipelined": full["pipelined"]["launches"],
+             "full_width_serial": full["serial"]["launches"],
+             "checkpoint": saved["launches"], "dqn": dqn["launches"]}
     for row in rows:
-        # train() is the system's entry point: its counts are the main
-        # path's; phase 4's consume path is kept beside them
+        # train() with its default pipeline is the system's entry point:
+        # its counts are the main path's; the other paths stand beside
         row["launches"] = loop["launches"][row["name"]]
-        row["launches_by_path"] = {
-            "train": loop["launches"][row["name"]],
-            "consume": result["launches"][row["name"]]}
+        row["launches_by_path"] = {path: counts[row["name"]]
+                                   for path, counts in paths.items()}
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

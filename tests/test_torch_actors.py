@@ -302,6 +302,63 @@ def test_worker_loops_pick_up_newer_params():
     assert _latest_params(q, 3, fam) == 3          # nothing new queued
 
 
+def test_respawn_never_hands_over_a_version_older_than_a_publish(
+        monkeypatch):
+    """A publish from another thread (the ingest pipeline's staging
+    thread) lands while a respawn hands the newest params to the new
+    worker: the worker's queue must end with the newest version, and an
+    older entry behind a newer one is never loaded."""
+    from apex_tpu_torch.actors.pool import ActorPool, _latest_params
+
+    class DeadProcess:
+        def is_alive(self):
+            return False
+
+        def join(self, timeout=None):
+            pass
+
+    cfg = ApexConfig(actor=ActorConfig(n_actors=1))
+    pool = ActorPool(cfg, {}, chunk_transitions=16)
+    pool.procs = [DeadProcess()]
+    pool.param_queues = [queue.Queue(maxsize=2)]
+    monkeypatch.setattr(pool, "_process", lambda i: DeadProcess())
+    monkeypatch.setattr(pool, "_spawn", lambda procs: None)
+    pool.publish_params(1, "v1")
+    pool.param_queues[0].get_nowait()        # the dead worker had taken it
+
+    publisher = threading.Thread(target=pool.publish_params,
+                                 args=(2, "v2"))
+    real_put = ActorPool._put_latest
+
+    def put_during_a_publish(q, version, params):
+        # the respawn's handover: let the other thread's publish run now
+        if threading.current_thread() is threading.main_thread():
+            publisher.start()
+            publisher.join(timeout=0.5)
+        real_put(q, version, params)
+
+    monkeypatch.setattr(ActorPool, "_put_latest",
+                        staticmethod(put_during_a_publish))
+    assert pool.respawn_worker(0)
+    publisher.join(timeout=10)
+    assert not publisher.is_alive()
+    versions = []
+    while not pool.param_queues[0].empty():
+        versions.append(pool.param_queues[0].get_nowait()[0])
+    assert versions == sorted(versions) and versions[-1] == 2
+
+    class Family:
+        loaded = []
+
+        def load_params(self, params):
+            self.loaded.append(params)
+
+    q = queue.Queue()
+    q.put((1, "v1"))                         # stale entry behind the newest
+    fam = Family()
+    assert _latest_params(q, 2, fam) == 2 and fam.loaded == []
+
+
 def test_pool_respawns_dead_workers_within_its_rate_limit():
     """Workers that die are respawned on their slots until the slot's
     budget for the window is spent; cleanup then leaves nothing alive.

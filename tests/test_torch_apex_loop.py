@@ -1,17 +1,18 @@
 """The port's concurrent Ape-X trainer against ``apex_tpu``'s.
 
 * The serial drain: one fixed list of chunk messages goes, through an
-  in-process stub pool, into the JAX trainer (``ingest_pipeline=False``)
-  and into the port's.  Both loops see the same clock, a fake one that
+  in-process stub pool, into the JAX trainer and into the port's, both
+  with ``ingest_pipeline=False``.  Both loops see the same clock, a fake one that
   moves only when a loop sleeps, so the publish cadence is a function of
   the step count alone.  They must take the same learner steps, ingest
   the same transitions, publish the same number of times and make the
   same fused, train-only, ingest-only and scan dispatches, across the
   replay-ratio cap and floor and ``scan_steps`` 1 and 4.
-* A real run: ``ApexTrainer(device="cpu")`` with 2 spawned actor
-  processes of 2 envs each on ``ApexCatchSmall-v0`` takes 20 steps over
-  the shared-memory ring, publishes params the actors act on, and leaves
-  no process and no segment behind, also when ``train()`` raises.
+* A real run: ``ApexTrainer(device="cpu")`` with its default ingest
+  pipeline and 2 spawned actor processes of 2 envs each on
+  ``ApexCatchSmall-v0`` takes 20 steps over the shared-memory ring,
+  publishes params the actors act on, and leaves no process and no
+  segment behind, also when ``train()`` raises.
 """
 
 import collections
@@ -160,7 +161,7 @@ def _run_port(msgs, scan_steps, knobs, total_steps):
         replay=ReplayConfig(capacity=512, warmup=64),
         learner=LearnerConfig(batch_size=B, compute_dtype="float32",
                               target_update_interval=7, publish_interval=5,
-                              scan_steps=scan_steps),
+                              scan_steps=scan_steps, ingest_pipeline=False),
         actor=ActorConfig(send_interval=K))
     pool = StubPool(copy.deepcopy(msgs))
     trainer = ApexTrainer(cfg, pool=pool, device="cpu",
@@ -226,7 +227,13 @@ def test_apex_trainer_trains_with_actor_processes_over_the_ring():
                 trainer.log.history["learner/episode_param_version"]]
     assert versions and min(versions) >= 1
     assert sum(trainer.dispatches.values()) > 0
-    assert trainer.dispatches["ingest"] * K >= cfg.replay.warmup
+    # the whole warm-up went in ingest-only dispatches, a merged slot's
+    # chunks counted one by one
+    stats = trainer._pipeline_last_stats
+    assert stats["slots"] > 0 and stats["publishes"] >= 1
+    ingest_chunks = (trainer.dispatches["ingest"] - stats["merged_slots"]
+                     + stats["merged_chunks"])
+    assert ingest_chunks * K >= cfg.replay.warmup
     assert not any(p.is_alive() for p in pool.procs)
     assert _segments() == []
     score = trainer.evaluate(episodes=2)

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels on the card, against their plain versions.
+"""The port's CUDA kernels and its side-stream staging on the card.
 
 These tests need an NVIDIA card with ``nvcc`` (the kernels build from
 ``apex_tpu_torch/ops/csrc`` at first use).  Without one they skip.  The
@@ -7,7 +7,7 @@ has only PyTorch:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-A gather is a copy, so every comparison is bit-exact.
+A gather is a copy, and so is staging, so every comparison is bit-exact.
 """
 
 import pathlib
@@ -22,7 +22,11 @@ import torch
 from apex_tpu_torch.actors.pool import ActorPool
 from apex_tpu_torch.config import ActorConfig, ApexConfig
 from apex_tpu_torch.ops import gather
+from apex_tpu_torch.replay.frame_chunks import (FrameChunkBuilder,
+                                                drain_builder_chunks)
 from apex_tpu_torch.replay.frame_pool import FramePoolReplay
+from apex_tpu_torch.training.ingest_pipeline import (IngestPipeline,
+                                                     PipelineState)
 
 pytestmark = pytest.mark.cuda
 
@@ -235,3 +239,157 @@ def test_spawned_actor_workers_see_no_cuda_device(card):
         assert threads == pool.threads
     assert not any(p.is_alive() for p in pool.procs)
     assert torch.cuda.is_available()       # the parent still has its card
+
+
+# -- the ingest pipeline's staging --------------------------------------------
+
+def _chunks(n, seed=0, shape=(42, 42, 1), k=64):
+    rng = np.random.default_rng(seed)
+    b = FrameChunkBuilder(3, 0.99, 4, shape, chunk_transitions=k)
+    msgs = []
+    while len(msgs) < n:
+        b.begin_episode(rng.integers(0, 255, shape).astype(np.uint8))
+        length = int(rng.integers(5, 80))
+        for t in range(length):
+            b.add_step(int(rng.integers(0, 3)), float(rng.normal()),
+                       rng.normal(size=3).astype(np.float32),
+                       rng.integers(0, 255, shape).astype(np.uint8),
+                       t == length - 1, False)
+        msgs.extend(drain_builder_chunks(b))
+    return msgs[:n]
+
+
+class _ListPool:
+    """Chunk source for the staging thread; records the device and stream
+    each poll ran under."""
+
+    def __init__(self, msgs):
+        self._msgs = list(msgs)
+        self.seen = []
+
+    def poll_chunks(self, max_chunks, timeout=0.0):
+        self.seen.append((torch.cuda.current_device(),
+                          torch.cuda.current_stream().cuda_stream))
+        out, self._msgs = self._msgs[:max_chunks], self._msgs[max_chunks:]
+        if not out and timeout:
+            time.sleep(timeout)
+        return out
+
+    def publish_params(self, version, params):
+        self.seen.append(("publish", version, params))
+
+
+def _drain(pipe, n_slots, timeout=30.0):
+    slots = []
+    deadline = time.monotonic() + timeout
+    while len(slots) < n_slots and time.monotonic() < deadline:
+        slot = pipe.poll_slot(timeout=0.1)
+        if slot is not None:
+            slots.append(slot)
+    return slots
+
+
+def test_staged_slots_are_on_the_card_behind_an_event(card):
+    msgs = _chunks(6)
+    pool = _ListPool([{**m} for m in msgs])
+    pipe = IngestPipeline(pool, device=card, state_fn=PipelineState)
+    pipe.start()
+    try:
+        slots = _drain(pipe, 6)
+    finally:
+        pipe.stop()
+    assert [s.kind for s in slots] == ["single"] * 6
+    for slot, msg in zip(slots, msgs):
+        assert isinstance(slot.ready, torch.cuda.Event)
+        assert slot.tensors and all(t.device == card for t in slot.tensors)
+        payload = slot.payload
+        assert type(payload["n_frames"]) is int
+        assert type(payload["n_trans"]) is int
+        # add() finds each staged field where and as it wants it: no copy
+        for name, dtype in (("frames", torch.uint8), ("action", torch.int32),
+                            ("reward", torch.float32),
+                            ("discount", torch.float32)):
+            assert payload[name].to(device=card, dtype=dtype) \
+                is payload[name], name
+        assert slot.prios.device == card
+        torch.cuda.synchronize()
+        assert slot.ready.query()
+        for name, value in msg["payload"].items():
+            if name not in ("n_frames", "n_trans"):
+                np.testing.assert_array_equal(payload[name].cpu().numpy(),
+                                              value, name)
+        np.testing.assert_array_equal(slot.prios.cpu().numpy(),
+                                      msg["priorities"])
+
+
+def test_staging_stress_through_reused_pinned_blocks(card):
+    """Many slots through a depth-2 ring while the card is kept busy: the
+    caching host allocator reuses its pinned blocks, and every slot
+    arrives bit-equal."""
+    msgs = _chunks(160, seed=1)
+    pool = _ListPool([{**m} for m in msgs])
+    merged = {"on": False}
+    pipe = IngestPipeline(
+        pool, device=card, depth=2, merge_max=4, capacity=1 << 16,
+        frame_capacity=1 << 17,
+        state_fn=lambda: PipelineState(train_eligible=not merged["on"]))
+    busy = torch.randn((2048, 2048), device=card)
+    pipe.start()
+    try:
+        got = []
+        deadline = time.monotonic() + 120
+        while sum(slot.chunks for slot, _, _ in got) < len(msgs) \
+                and time.monotonic() < deadline:
+            merged["on"] = len(got) % 3 == 0
+            slot = pipe.poll_slot(timeout=0.1)
+            if slot is None:
+                continue
+            busy = busy @ busy.T / 2048.0      # work ahead of the slot's use
+            got.append((slot, {name: v.clone() if torch.is_tensor(v) else v
+                               for name, v in slot.payload.items()},
+                        slot.prios.clone()))
+    finally:
+        pipe.stop()
+    torch.cuda.synchronize()
+    assert sum(s.chunks for s, _, _ in got) == len(msgs)
+    assert any(s.kind == "merged" for s, _, _ in got)
+    from apex_tpu_torch.training.ingest_pipeline import merge_chunk_messages
+    i = 0
+    for slot, payload, prios in got:
+        want = merge_chunk_messages(msgs[i:i + slot.chunks])
+        i += slot.chunks
+        assert payload["n_trans"] == int(want["n_trans"])
+        for name, value in want["payload"].items():
+            if name not in ("n_frames", "n_trans"):
+                np.testing.assert_array_equal(payload[name].cpu().numpy(),
+                                              value, name)
+        np.testing.assert_array_equal(prios.cpu().numpy(),
+                                      np.asarray(want["priorities"],
+                                                 np.float32))
+
+
+def test_staging_thread_names_the_device_and_its_stream(card):
+    """Given "cuda" (the trainers' default), the staging thread runs on
+    the current card and on the pipeline's own stream."""
+    pool = _ListPool(_chunks(2))
+    pipe = IngestPipeline(pool, device="cuda", state_fn=PipelineState)
+    assert pipe.device == torch.device("cuda", torch.cuda.current_device())
+    weights = torch.arange(8, dtype=torch.float32, device=card)
+    pipe.start()
+    try:
+        pipe.publish(4, {"w": weights.clone()})
+        weights.add_(1.0)
+        assert len(_drain(pipe, 2)) == 2
+        deadline = time.monotonic() + 10
+        while not any(s[0] == "publish" for s in pool.seen) \
+                and time.monotonic() < deadline:
+            time.sleep(0.01)
+    finally:
+        pipe.stop()
+    polls = [s for s in pool.seen if s[0] != "publish"]
+    assert polls and {d for d, _ in polls} == {pipe.device.index}
+    assert {st for _, st in polls} == {pipe._stream.cuda_stream}
+    assert pipe._stream.cuda_stream != torch.cuda.current_stream().cuda_stream
+    (_, version, params), = [s for s in pool.seen if s[0] == "publish"]
+    assert version == 4
+    np.testing.assert_array_equal(params["w"], np.arange(8, dtype=np.float32))

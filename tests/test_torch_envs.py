@@ -41,7 +41,10 @@ def test_catch_trajectories_match(env_id):
 
 
 def test_registry_refuses_what_is_not_ported():
-    with pytest.raises(ValueError, match="not ported"):
-        make_env("ApexCartPole-v0")
-    with pytest.raises(ValueError, match="un-stacked"):
-        make_env("ApexCatch-v0", stack_frames=True)
+    for env_id in ("ApexCartPolePO-v0", "ApexRally-v0",
+                   "SeaquestNoFrameskip-v4"):
+        with pytest.raises(ValueError, match="not ported"):
+            make_env(env_id)
+    stacked = make_env("ApexCatchSmall-v0", stack_frames=True, seed=0)
+    assert stacked.observation_space.shape == (42, 42, 4)
+    assert stacked.reset(seed=1)[0].shape == (42, 42, 4)

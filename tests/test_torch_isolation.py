@@ -12,7 +12,8 @@ import pytest
 import torch
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "gymnasium", "gym", "apex_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "gymnasium", "gym", "msgpack",
+             "apex_tpu"}
 
 
 def _port_files():
@@ -49,13 +50,22 @@ def test_scan_sees_every_import_form(tmp_path):
     assert roots & FORBIDDEN == {"jax", "apex_tpu", "gymnasium"}
 
 
-def test_entry_points_refuse_cuda_without_a_card(monkeypatch):
+def test_entry_points_refuse_cuda_without_a_card(monkeypatch, tmp_path):
     from apex_tpu_torch import resolve_device
+    from apex_tpu_torch.config import small_test_config
     from apex_tpu_torch.training.apex import ApexTrainer
+    from apex_tpu_torch.training.checkpoint import evaluate_checkpoint
+    from apex_tpu_torch.training.dqn import DQNTrainer
 
+    path = DQNTrainer(small_test_config(), checkpoint_dir=str(tmp_path),
+                      device="cpu").save_checkpoint()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ApexTrainer()                        # device defaults to "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DQNTrainer(small_test_config())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        evaluate_checkpoint(path)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device("cuda:0")
     assert resolve_device("cpu") == torch.device("cpu")
