@@ -2,10 +2,10 @@
 
 A copy of the sections of :mod:`apex_tpu.config` the port's drivers read
 (the concurrent Ape-X trainer with its ingest pipeline, the single-process
-DQN driver, checkpointing), with the same defaults (reference
-hyperparameters: ``origin_repo/arguments.py:9-74``), and of
+DQN driver, checkpointing, the R2D2 family), with the same defaults
+(reference hyperparameters: ``origin_repo/arguments.py:9-74``), and of
 :func:`~apex_tpu.config.small_test_config`.  Fields that only later slices
-read (mesh, comms, remote policy, AQL, R2D2) are not copied yet.
+read (mesh, comms, remote policy, AQL) are not copied yet.
 """
 
 from __future__ import annotations
@@ -25,6 +25,9 @@ class ReplayConfig:
     beta_anneal: int = 500_000       # transitions over which beta reaches 1
     warmup: int = 50_000             # learner gated until this many transitions
     eps: float = 1e-6                # clamp floor for priorities (pre-alpha)
+    # the R2D2 family's pixel sequences go to the frame-dedup sequence
+    # pool (replay/seq_pool.py) instead of stacked sequence windows
+    frame_pool: bool = False
     # Constructors refuse a replay whose estimated footprint exceeds this
     # (and, on a card, the card's own memory).
     hbm_budget_gb: float = 12.0
@@ -106,6 +109,20 @@ class EnvConfig:
 
 
 @dataclass(frozen=True)
+class R2D2Config:
+    """Recurrent-family hyperparameters (``apex_tpu/config.py:185-207``).
+    A stored sequence is ``burn_in + unroll + n_steps`` steps."""
+
+    burn_in: int = 8            # state-warmup prefix, no loss or gradient
+    unroll: int = 16            # loss positions per sequence
+    stride: int | None = None   # sequence start spacing; None = unroll // 2
+    lstm_features: int = 128    # recurrent width
+    # sequences per ingest batch and per actor message: one fixed message
+    # shape for the drivers and the shm slot sizing
+    sequence_group: int = 4
+
+
+@dataclass(frozen=True)
 class ApexConfig:
     """Top-level bundle of the sections this slice reads."""
 
@@ -113,6 +130,7 @@ class ApexConfig:
     replay: ReplayConfig = field(default_factory=ReplayConfig)
     learner: LearnerConfig = field(default_factory=LearnerConfig)
     actor: ActorConfig = field(default_factory=ActorConfig)
+    r2d2: R2D2Config = field(default_factory=R2D2Config)
 
     def replace(self, **sections: Any) -> "ApexConfig":
         return dataclasses.replace(self, **sections)

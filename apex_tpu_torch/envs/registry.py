@@ -1,7 +1,8 @@
 """Env construction for the port.
 
 Counterpart of :mod:`apex_tpu.envs.registry` for the envs the port runs:
-``ApexCartPole-v0`` and the ``ApexCatch*`` family.  :func:`make_env`
+``ApexCartPole-v0``, its velocity-masked ``ApexCartPolePO-v0`` and the
+``ApexCatch*`` family.  :func:`make_env`
 builds them un-stacked by default (``stack_frames=False``), the form the
 frame-pool actors consume: stacks are rebuilt on the device at sample
 time and in :class:`~apex_tpu_torch.replay.frame_chunks.FrameChunkBuilder`
@@ -18,7 +19,7 @@ from typing import Any
 import numpy as np
 
 from apex_tpu_torch.config import EnvConfig
-from apex_tpu_torch.envs.toy import Box, CartPoleEnv, CatchEnv
+from apex_tpu_torch.envs.toy import Box, CartPoleEnv, CatchEnv, VelocityMask
 
 
 class TimeLimit:
@@ -83,16 +84,19 @@ def make_env(env_id: str | None = None, cfg: EnvConfig | None = None,
              stack_frames: bool = False):
     """The envs of ``apex_tpu.envs.registry`` that the port serves
     (``registry.py:77-101``): ``ApexCartPole-v0``, whose own limit is 500
-    steps unless ``max_episode_steps`` is given, and the Catch variants:
+    steps unless ``max_episode_steps`` is given, ``ApexCartPolePO-v0``,
+    the same with its velocities hidden, and the Catch variants:
     Small 7x7 at 42x42 with 3 balls, Medium 11x11 at 44x44 with 4 balls,
     full 21x21 at 84x84 with 5 balls, where ``max_episode_steps`` wraps
     the env in :class:`TimeLimit`.  ``stack_frames`` stacks the last
     ``cfg.frame_stack`` frames of a pixel env."""
     cfg = cfg or EnvConfig()
     env_id = env_id or cfg.env_id
-    if env_id == "ApexCartPole-v0":
+    if env_id in ("ApexCartPole-v0", "ApexCartPolePO-v0"):
         env = (CartPoleEnv(max_episode_steps=max_episode_steps)
                if max_episode_steps is not None else CartPoleEnv())
+        if env_id == "ApexCartPolePO-v0":
+            env = VelocityMask(env)
     elif env_id.startswith("ApexCatch"):
         if "Small" in env_id:
             env = CatchEnv(grid=7, pixels=42, balls=3)
@@ -106,7 +110,8 @@ def make_env(env_id: str | None = None, cfg: EnvConfig | None = None,
             env = FrameStack(env, cfg.frame_stack)
     else:
         raise ValueError(f"env {env_id!r} is not ported yet; the port "
-                         f"serves ApexCartPole-v0 and the ApexCatch* family")
+                         f"serves ApexCartPole-v0, ApexCartPolePO-v0 and "
+                         f"the ApexCatch* family")
     if seed is not None:
         env.reset(seed=seed)
     return env

@@ -1,7 +1,8 @@
 """Numpy-native envs, free of gymnasium.
 
-Counterparts of :class:`apex_tpu.envs.toy.CartPoleEnv` (``toy.py:23-77``)
-and :class:`apex_tpu.envs.toy.CatchEnv` (``toy.py:272-324``) with the same
+Counterparts of :class:`apex_tpu.envs.toy.CartPoleEnv` (``toy.py:23-77``),
+:class:`apex_tpu.envs.toy.VelocityMask` (``toy.py:78-93``) and
+:class:`apex_tpu.envs.toy.CatchEnv` (``toy.py:272-324``) with the same
 ``reset``/``step`` semantics.  The port cannot import gymnasium (the GPU
 host does not ship it), so the envs carry their own minimal space
 stand-ins and their own ``numpy.random.Generator``, seeded in ``reset``
@@ -91,6 +92,34 @@ class CartPoleEnv:
 
     def close(self) -> None:
         pass
+
+
+class VelocityMask:
+    """CartPole with its velocities hidden: observations are ``(x,
+    theta)`` only, so a policy has to infer velocities from history (the
+    partially observable task the recurrent family is certified on)."""
+
+    _KEEP = np.array([0, 2])
+
+    def __init__(self, env):
+        self.env = env
+        self.action_space = env.action_space
+        self.observation_space = Box(-np.inf, np.inf, (2,),
+                                     np.dtype(np.float32))
+
+    def _mask(self, obs) -> np.ndarray:
+        return np.asarray(obs, np.float32)[self._KEEP]
+
+    def reset(self, **kwargs):
+        obs, info = self.env.reset(**kwargs)
+        return self._mask(obs), info
+
+    def step(self, action):
+        obs, reward, terminated, truncated, info = self.env.step(action)
+        return self._mask(obs), reward, terminated, truncated, info
+
+    def close(self) -> None:
+        self.env.close()
 
 
 class CatchEnv:

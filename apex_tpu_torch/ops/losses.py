@@ -1,9 +1,10 @@
-"""Loss and update rules of the DQN family.
+"""Loss and update rules of the DQN and R2D2 families.
 
-Counterpart of the DQN part of :mod:`apex_tpu.ops.losses` (reference
-``utils.compute_loss``/``update_parameters``, ``utils.py:64-97``): the
-n-step double-DQN Huber loss with IS weights, the mixed-max priority
-heuristic, and global-norm clipping + centered RMSprop + StepLR.
+Counterpart of the DQN and R2D2 parts of :mod:`apex_tpu.ops.losses`
+(reference ``utils.compute_loss``/``update_parameters``,
+``utils.py:64-97``): the n-step double-DQN Huber loss with IS weights, the
+mixed-max priority heuristic, the recurrent sequence loss with burn-in,
+and global-norm clipping + centered RMSprop + StepLR.
 
 The optimizer is written out by hand to match optax, because stock torch
 differs in three places:
@@ -86,6 +87,78 @@ def double_dqn_loss(online: nn.Module, target: nn.Module,
     return loss, TDOutput(loss=loss.detach(), td_abs=td_abs,
                           priorities=mixed_max_priorities(td_abs),
                           q_taken=q_taken.detach())
+
+
+def r2d2_loss(online: nn.Module, target: nn.Module,
+              batch: dict[str, torch.Tensor], weights: torch.Tensor, *,
+              burn_in: int, n_steps: int, eta: float = PRIORITY_ETA,
+              eps: float = 1e-6) -> tuple[torch.Tensor, TDOutput]:
+    """Sequence double-DQN loss of the recurrent family
+    (``apex_tpu/ops/losses.py:105-193``).
+
+    ``online``/``target`` map ``(obs_seq [B, L, *obs], (c, h)) -> (q [B, L,
+    A], (c, h))``.  ``batch``: ``obs [B, T, *obs]``, ``action``/``reward``/
+    ``discount``/``mask`` ``[B, T]`` (``discount`` = gamma per step, 0 at
+    terminals and on padding; ``mask`` 1 on real loss steps) and
+    ``state_c``/``state_h`` ``[B, H]``, the stored state at sequence start.
+    ``T = burn_in + unroll + n_steps``; the loss covers the ``unroll``
+    positions after the burn-in.
+
+    Both nets unroll the burn-in from the stored state with no gradient;
+    then n-step double-DQN over the unroll, bootstrapping from the target
+    net at the online argmax, a masked Huber mean per sequence weighted by
+    the IS weights, and per-sequence priorities ``eta * max + (1 - eta) *
+    mean + eps`` of the masked |TD|.  ``td_abs`` and ``q_taken`` in the
+    output are per-sequence means over the mask.
+    """
+    obs = batch["obs"]
+    t_total = obs.shape[1]
+    unroll = t_total - burn_in - n_steps
+    if unroll < 1:
+        raise ValueError(
+            f"sequence length {t_total} too short for burn_in={burn_in} "
+            f"+ n_steps={n_steps} + at least one unroll step")
+
+    carry_on = carry_tg = (batch["state_c"], batch["state_h"])
+    with torch.no_grad():
+        if burn_in:
+            _, carry_on = online(obs[:, :burn_in], carry_on)
+            _, carry_tg = target(obs[:, :burn_in], carry_tg)
+        body = obs[:, burn_in:]                    # [B, unroll + n, *obs]
+        qt_seq, _ = target(body, carry_tg)
+    q_seq, _ = online(body, carry_on)
+
+    r = batch["reward"][:, burn_in:]
+    d = batch["discount"][:, burn_in:]
+    m = batch["mask"][:, burn_in:]
+    # n-step returns per unroll position; discount 0 at terminals and on
+    # padding truncates every product past the episode's end
+    returns = torch.zeros_like(r[:, :unroll])
+    disc_prod = torch.ones_like(returns)
+    for i in range(n_steps):
+        returns = returns + disc_prod * r[:, i:i + unroll]
+        disc_prod = disc_prod * d[:, i:i + unroll]
+
+    next_online = q_seq.detach()[:, n_steps:n_steps + unroll]
+    next_target = qt_seq[:, n_steps:n_steps + unroll]
+    a_star = next_online.argmax(dim=-1, keepdim=True)
+    bootstrap = next_target.gather(-1, a_star)[..., 0]
+    target_q = returns + disc_prod * bootstrap
+
+    actions = batch["action"][:, burn_in:burn_in + unroll].long()
+    q_taken = q_seq[:, :unroll].gather(-1, actions[..., None])[..., 0]
+    td = target_q - q_taken
+    lmask = m[:, :unroll]
+    n_valid = lmask.sum(dim=1).clamp_min(1.0)
+
+    loss = ((huber(td) * lmask).sum(dim=1) / n_valid * weights).mean()
+
+    td_abs = td.detach().abs() * lmask
+    seq_mean = td_abs.sum(dim=1) / n_valid
+    priorities = eta * td_abs.max(dim=1).values + (1.0 - eta) * seq_mean + eps
+    q_mean = (q_taken.detach() * lmask).sum(dim=1) / n_valid
+    return loss, TDOutput(loss=loss.detach(), td_abs=seq_mean,
+                          priorities=priorities, q_taken=q_mean)
 
 
 def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:

@@ -89,11 +89,11 @@ class ConcurrentTrainer(CheckpointableTrainer):
     ingest+train, enforce the replay-ratio band, publish versioned params.
 
     Chunk messages are ``{"payload": chunk, "priorities": f32[K],
-    "n_trans": int}`` (:func:`~apex_tpu_torch.replay.frame_chunks.drain_builder_chunks`).
-    Subclasses construct ``cfg, pool, replay, replay_state, train_state,
-    core, generator, device, log, steps_rate, frames_rate, ingested,
-    param_version, learner_epoch, scan_steps, checkpointer`` and the ratio
-    knobs (see :class:`ApexTrainer`).  ``dispatches`` counts learner calls
+    "n_trans": int}`` (:func:`~apex_tpu_torch.replay.frame_chunks.drain_builder_chunks`,
+    or a sequence message of :mod:`apex_tpu_torch.actors.r2d2`).
+    Subclasses construct ``cfg, device, pool, replay, replay_state,
+    train_state, core, scan_steps`` and call :meth:`_init_loop` for the
+    rest (see :class:`ApexTrainer`).  ``dispatches`` counts learner calls
     by kind: ``fused`` (ingest+train), ``train`` (train only), ``ingest``
     (ingest only, a merged slot's included) and ``scan`` (one
     fused_multi_step of several fused steps).
@@ -107,6 +107,33 @@ class ConcurrentTrainer(CheckpointableTrainer):
     _pipeline: IngestPipeline | None = None
     _pipeline_base = 0              # ingested count the pipeline began at
     _pipeline_last_stats: dict | None = None
+
+    def _init_loop(self, train_ratio, min_train_ratio, publish_min_seconds,
+                   respawn_workers, logdir, verbose, checkpoint_dir) -> None:
+        """The loop's knobs, counters, logger, checkpointer and sample
+        generator, set by each subclass once ``cfg`` and ``device`` are."""
+        if (train_ratio is not None and min_train_ratio is not None
+                and min_train_ratio > train_ratio):
+            raise ValueError("min_train_ratio must be <= train_ratio")
+        self.train_ratio = train_ratio
+        self.min_train_ratio = min_train_ratio
+        self.publish_min_seconds = publish_min_seconds
+        self.respawn_workers = respawn_workers
+        # the PER sample's uniforms; the JAX trainer's key chain
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            self.cfg.env.seed + 1)
+        self.log = MetricLogger("learner", logdir, verbose=verbose)
+        self.steps_rate = RateCounter()
+        self.frames_rate = RateCounter()
+        self.ingested = 0
+        self.param_version = 0
+        self.learner_epoch = 1
+        self.checkpointer = (Checkpointer(checkpoint_dir)
+                             if checkpoint_dir else None)
+        self.dispatches = {"fused": 0, "train": 0, "ingest": 0, "scan": 0}
+        self._dispatch_gap = DispatchGapTimer()    # train() starts a fresh one
+        self.actor_timing: dict = {}
+        self.stat_drops = 0
 
     @property
     def steps(self) -> int:
@@ -171,7 +198,7 @@ class ConcurrentTrainer(CheckpointableTrainer):
                 merge_max=cfg.learner.pipeline_merge,
                 state_fn=self._pipeline_state,
                 capacity=self.replay.capacity,
-                frame_capacity=self.replay.f_capacity)
+                frame_capacity=getattr(self.replay, "f_capacity", None))
             self._pipeline_base = self.ingested
         try:
             pool.start()
@@ -525,14 +552,6 @@ class ApexTrainer(ConcurrentTrainer):
                  checkpoint_dir: str | None = None):
         self.device = resolve_device(device)
         self.cfg = cfg = config or ApexConfig()
-        if (train_ratio is not None and min_train_ratio is not None
-                and min_train_ratio > train_ratio):
-            raise ValueError("min_train_ratio must be <= train_ratio")
-        self.train_ratio = train_ratio
-        self.min_train_ratio = min_train_ratio
-        self.publish_min_seconds = publish_min_seconds
-        self.respawn_workers = respawn_workers
-
         self.model_spec, frame_shape, frame_dtype, frame_stack = \
             dqn_env_specs(cfg)
         self.replay = FramePoolReplay(
@@ -569,23 +588,9 @@ class ApexTrainer(ConcurrentTrainer):
                              chunk_transitions=cfg.actor.send_interval,
                              shm_slot_bytes=slot)
         self.pool = pool
-
         self.replay_state = self.replay.init(self.device)
-        # the PER sample's uniforms; the JAX trainer's key chain
-        self.generator = torch.Generator(device=self.device).manual_seed(
-            cfg.env.seed + 1)
-        self.log = MetricLogger("learner", logdir, verbose=verbose)
-        self.steps_rate = RateCounter()
-        self.frames_rate = RateCounter()
-        self.ingested = 0
-        self.param_version = 0
-        self.learner_epoch = 1
-        self.checkpointer = (Checkpointer(checkpoint_dir)
-                             if checkpoint_dir else None)
-        self.dispatches = {"fused": 0, "train": 0, "ingest": 0, "scan": 0}
-        self._dispatch_gap = DispatchGapTimer()    # train() starts a fresh one
-        self.actor_timing: dict = {}
-        self.stat_drops = 0
+        self._init_loop(train_ratio, min_train_ratio, publish_min_seconds,
+                        respawn_workers, logdir, verbose, checkpoint_dir)
 
     def evaluate(self, episodes: int = 10, epsilon: float = 0.0,
                  max_steps: int = 10_000) -> float:

@@ -217,7 +217,8 @@ def config_from_meta(meta_cfg: dict):
     config does not have (a JAX config's mesh or comms fields) are
     dropped."""
     from apex_tpu_torch.config import (ActorConfig, ApexConfig, EnvConfig,
-                                       LearnerConfig, ReplayConfig)
+                                       LearnerConfig, R2D2Config,
+                                       ReplayConfig)
 
     def build(cls, d):
         names = {f.name for f in dataclasses.fields(cls)}
@@ -227,7 +228,8 @@ def config_from_meta(meta_cfg: dict):
     return ApexConfig(env=build(EnvConfig, meta_cfg["env"]),
                       replay=build(ReplayConfig, meta_cfg["replay"]),
                       learner=build(LearnerConfig, meta_cfg["learner"]),
-                      actor=build(ActorConfig, meta_cfg["actor"]))
+                      actor=build(ActorConfig, meta_cfg["actor"]),
+                      r2d2=build(R2D2Config, meta_cfg.get("r2d2", {})))
 
 
 def spec_to_meta(spec: dict) -> dict:
@@ -249,14 +251,18 @@ def spec_from_meta(meta_spec: dict) -> dict:
 
 def run_policy_episodes(env, policy, generator: torch.Generator,
                         episodes: int, epsilon: float, max_steps: int,
-                        seed_base: int) -> list[float]:
+                        seed_base: int, reset_hook=None) -> list[float]:
     """The greedy-eval episode loop (``eval.py:49-87``) shared by the
     trainers' ``evaluate`` and :func:`evaluate_checkpoint`: episode ``i``
     resets with seed ``seed_base + i``; ``policy(obs, epsilon, generator)
     -> (actions, q)`` (:func:`~apex_tpu_torch.models.dueling.
-    make_policy_fn`) acts on a batch of one on the generator's device."""
+    make_policy_fn`) acts on a batch of one on the generator's device.
+    ``reset_hook()``, when given, runs before each episode (a recurrent
+    policy zeroes its carry there)."""
     rewards = []
     for ep in range(episodes):
+        if reset_hook is not None:
+            reset_hook()
         obs, _ = env.reset(seed=seed_base + ep)
         total, done, steps = 0.0, False, 0
         while not done and steps < max_steps:
@@ -281,24 +287,27 @@ def evaluate_checkpoint(path: str, episodes: int = 10, epsilon: float = 0.0,
     ``"cpu"`` is asked for."""
     from apex_tpu_torch.envs.registry import make_eval_env
     from apex_tpu_torch.models.dueling import DuelingDQN, make_policy_fn
+    from apex_tpu_torch.models.recurrent import (RecurrentDuelingDQN,
+                                                 episodic_policy)
 
     dev = resolve_device(device)
     raw, meta = load_raw(path)
     if "action_dim" in meta["model_spec"]:
         raise NotImplementedError("AQL checkpoints: the AQL family is not "
                                   "ported yet (ROADMAP item 6)")
-    if "lstm_features" in meta["model_spec"]:
-        raise NotImplementedError("R2D2 checkpoints: the R2D2 family is not "
-                                  "ported yet (ROADMAP item 7)")
     cfg = config_from_meta(meta["config"])
-    model = DuelingDQN(**spec_from_meta(meta["model_spec"]),
-                       generator=torch.Generator().manual_seed(seed))
+    # a spec with lstm_features is the recurrent family's
+    recurrent = "lstm_features" in meta["model_spec"]
+    model = (RecurrentDuelingDQN if recurrent else DuelingDQN)(
+        **spec_from_meta(meta["model_spec"]),
+        generator=torch.Generator().manual_seed(seed))
     model.load_state_dict(raw["train_state"]["params"])
     model.to(dev)
+    policy, reset = (episodic_policy(model) if recurrent
+                     else (make_policy_fn(model), None))
     env = make_eval_env(cfg.env.env_id, cfg.env, seed=seed)
     rewards = run_policy_episodes(
-        env, make_policy_fn(model),
-        torch.Generator(device=dev).manual_seed(seed), episodes, epsilon,
-        max_steps, seed_base=seed)
+        env, policy, torch.Generator(device=dev).manual_seed(seed), episodes,
+        epsilon, max_steps, seed_base=seed, reset_hook=reset)
     env.close()
     return float(np.mean(rewards))

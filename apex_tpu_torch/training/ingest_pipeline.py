@@ -31,8 +31,8 @@ the event and each staged tensor is recorded on that stream, so the
 caching allocator cannot give it back to the side stream while the step
 still reads it.  The staging thread sets the trainer's device and the
 side stream as its own once, when it starts (both are per thread).  The
-chunk's ``n_frames``/``n_trans`` stay host ints: the replay reads them
-on the host.  On the CPU a slot's arrays are wrapped with
+counts of :data:`HOST_SCALARS` stay host ints: the replays read them on
+the host.  On the CPU a slot's arrays are wrapped with
 ``torch.as_tensor``, without a copy (the JAX pipeline's
 ``put_device=False``).
 
@@ -62,8 +62,9 @@ FRAME_CHUNK_KEYS = frozenset((
     "frames", "n_frames", "n_trans", "action", "reward", "discount",
     "obs_ref", "next_ref"))
 
-#: chunk fields the replay reads on the host; staging keeps them ints
-HOST_SCALARS = frozenset(("n_frames", "n_trans"))
+#: message fields the replays read on the host (a frame chunk's counts, a
+#: pooled sequence message's n_frames and n_seqs); staging keeps them ints
+HOST_SCALARS = frozenset(("n_frames", "n_trans", "n_seqs"))
 
 #: how long the staging thread's poll of an empty pool waits, seconds
 POLL_TIMEOUT = 0.01

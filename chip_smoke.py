@@ -49,15 +49,33 @@ Phases, each of which exits nonzero on failure before any result line:
    widths for 2048 frames (warm-up 512, an update every 4 frames, batch
    512, autosaves every 100 updates): finite metrics, the autosaves;
    prints frames/s and updates/s.
+9. r2d2     -- the recurrent family.  A small recurrent learner (42x42,
+   f32, TF32 off) on the card and on the CPU from the same weights,
+   pooled sequence messages and uniforms: sampled sequences bit-exact,
+   losses within rtol 1e-4.  Then ``R2D2ApexTrainer.train`` at full
+   width: ``ApexCatch-v0`` single frames into the pooled sequence replay
+   (capacity 2^16 sequences, a 1 277 952-row ring), the spec's widths
+   (bf16 convs, LSTM 128), burn-in 8 + unroll 16 + n-step 3, batch 512
+   sequences, 4 actor processes x 8 envs over the shm ring, warm-up 4096
+   transitions, 50 learner steps with the default pipeline.  Checks the
+   steps, one ``gather_rows`` launch of 13 824 rows per step and no
+   ``gather_stacks``, finite metrics and priorities, the sum tree, the
+   publishes the actors acted on, that no process or segment outlives
+   ``train()``; prints learner steps/s, sequences/s, env frames/s, a
+   synchronised fused step's ms and peak memory.  Last, ``R2D2Trainer``
+   for 1024 frames on the same geometry.  Phase 2 times ``gather_rows``
+   at this sample's shape.
 
 Then it prints the card's name and power limit, one ``{"kernels": ...}``
-line (``launches`` counts phase 5's pipelined ``train()``, the system's
-entry point; ``launches_by_path`` adds the serial drain, phase 4's
-consume path and phases 6-8) and, last,
+line (``launches`` counts each kernel's main path: phase 5's pipelined
+``train()`` for ``gather_stacks``, phase 9's for ``gather_rows``;
+``launches_by_path`` adds the serial drain, phase 4's consume path and
+phases 6-9) and, last,
 ``{"ok": true, "device": {...}}``.  It needs one card
 and exits nonzero without one.  ``--profile DIR`` also traces a few more
-fused steps with ``torch.profiler``, writes device time by op and by
-kernel to DIR and prints the gather and copy kernels' device time.
+fused steps of phases 4 and 9 with ``torch.profiler``, writes device time
+by op and by kernel to DIR and prints the gather and copy kernels' device
+time.
 ``--parent DIR`` also builds the ``gather_rows`` kernel of an earlier
 checkout unpacked at DIR and times it beside this one.
 """
@@ -157,6 +175,10 @@ def time_ms(fns: dict, iters: int = 30, warmup: int = 3) -> dict:
 FRAME = (84, 84, 1)          # one ApexCatch frame: a 7056-byte ring row
 STACK = 4
 RING_ROWS = 2 ** 20          # the slice's frame ring
+# phase 9's geometry: sequences of burn-in 8 + unroll 16 + n-step 3
+R2D2_T = 8 + 16 + 3
+R2D2_ROWS = BATCH * R2D2_T   # ring rows gathered per R2D2 learner step
+R2D2_RING_ROWS = 1_277_952   # r2d2_frame_capacity at capacity 2^16
 
 
 def parent_gather_rows(root: str, gather):
@@ -310,11 +332,41 @@ def kernel_phase(dev, gather, card: str,
         f"({moved} B at {rate:.3g} B/s)")
     del ring, sets
     torch.cuda.empty_cache()
+
+    # the R2D2 learner's sample (phase 9): B*T rows over the pooled ring
+    ring = u8(R2D2_RING_ROWS, d)
+    rows_err = max(rows_err, _exact("gather_rows", [
+        (f"u8 D=7056, N={R2D2_ROWS} over F={R2D2_RING_ROWS} (the R2D2 "
+         f"sample)", ring, rand_ids(R2D2_ROWS, high=R2D2_RING_ROWS))],
+        gather.gather_rows, gather.gather_rows_reference))
+    sets = [rand_ids(R2D2_ROWS, high=R2D2_RING_ROWS) for _ in range(33)]
+    fns = {"kernel": lambda i: gather.gather_rows(ring, sets[i]),
+           "plain": lambda i: gather.gather_rows_reference(ring, sets[i]),
+           "library": lambda i: torch.index_select(ring, 0, sets[i])}
+    if parent:
+        fns["parent"] = lambda i: parent_rows(ring, sets[i])
+    seq = time_ms(fns)
+    moved = 2 * R2D2_ROWS * d + 4 * R2D2_ROWS
+    seq["bound"] = moved / rate * 1e3
+    log(f"gather_rows N={R2D2_ROWS} D={d} over F={R2D2_RING_ROWS} (the "
+        f"R2D2 sample): kernel {seq['kernel']:.6f} ms, plain "
+        f"{seq['plain']:.6f} ms, index_select {seq['library']:.6f} ms, "
+        f"bound {seq['bound']:.6f} ms ({moved} B at {rate:.3g} B/s)"
+        + (f", parent checkout's kernel {seq['parent']:.6f} ms"
+           if parent else ""))
+    del ring, sets
+    torch.cuda.empty_cache()
     common = dict(route="cuda", source="apex_tpu_torch/ops/csrc/gather.cu",
                   replaces="apex_tpu/ops/gather.py:71", bound_by="bytes")
+    # gather_rows' own path is the R2D2 learner's, at its sample's shape;
+    # PR 1's N = 2048 over the DQN ring stays beside it
     return [dict(name="gather_rows", max_abs_err=rows_err,
-                 ms=rows[n]["kernel"], plain_ms=rows[n]["plain"],
-                 bound_ms=rows[n]["bound"], library_ms=rows[n]["library"],
+                 ms=seq["kernel"], plain_ms=seq["plain"],
+                 bound_ms=seq["bound"], library_ms=seq["library"],
+                 at_n2048=dict(ms=rows[n]["kernel"],
+                               plain_ms=rows[n]["plain"],
+                               bound_ms=rows[n]["bound"],
+                               library_ms=rows[n]["library"]),
                  **common),
             dict(name="gather_stacks", max_abs_err=stacks_err,
                  ms=st["kernel"], plain_ms=st["plain"], bound_ms=st["bound"],
@@ -434,7 +486,8 @@ def reference_phase(dev) -> None:
 
 # -- phase 4: the slice ----------------------------------------------------
 
-def profile_steps(trainer, msgs: list, out_dir: str) -> None:
+def profile_steps(trainer, msgs: list, out_dir: str,
+                  name: str = "chip_smoke_profile.txt") -> None:
     """Run fused steps under ``torch.profiler`` and write the device time
     by op to ``out_dir``.  Device time is the sum of the kernels' and
     copies' durations; each op's share is the device time of what it
@@ -475,7 +528,7 @@ def profile_steps(trainer, msgs: list, out_dir: str) -> None:
              if any(k in line for k in ("gather", "bulk_kernel", "reg_kernel",
                                         "Cat", "copy", "Copy", "Memcpy"))]
     os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, "chip_smoke_profile.txt")
+    path = os.path.join(out_dir, name)
     with open(path, "w") as f:
         f.write("\n".join(lines) + "\n")
     log("profile: " + "\nprofile: ".join(lines[:16]) + f"\nprofile: -> {path}")
@@ -1092,6 +1145,324 @@ def dqn_phase(gather) -> dict:
                 steps_per_s=steps / wall)
 
 
+# -- phase 9: the recurrent (R2D2) family ------------------------------------
+
+R2D2_CAPACITY = 2 ** 16      # sequences (the default 2^19 needs ~73 GB)
+R2D2_STEPS = 50              # learner steps of R2D2ApexTrainer.train
+R2D2_SECONDS = 300.0         # its wall-clock bound
+R2D2_FRAMES = 1024           # env frames of the R2D2Trainer run
+R2D2_WARMUP_SEQS = 64        # sequences resident before its first update
+R2D2_TIMED = 10              # synchronised fused steps timed after train()
+
+
+def _r2d2_cfg():
+    """Phase 9's configuration: ``ApexCatch-v0`` single frames into the
+    pooled sequence replay, the model spec's widths (bf16 convs, LSTM
+    128, heads 128), burn-in 8, unroll 16, n-step 3, batch 512 sequences,
+    4 actor processes x 8 envs."""
+    from apex_tpu_torch.config import (ActorConfig, ApexConfig, EnvConfig,
+                                       LearnerConfig, ReplayConfig)
+    return ApexConfig(
+        env=EnvConfig(env_id="ApexCatch-v0", seed=SEED),
+        replay=ReplayConfig(capacity=R2D2_CAPACITY, warmup=TRAIN_WARMUP,
+                            frame_pool=True),
+        learner=LearnerConfig(batch_size=BATCH, target_update_interval=500),
+        actor=ActorConfig(n_actors=N_ACTORS, n_envs_per_actor=ENVS_PER_ACTOR,
+                          timing_interval=32))
+
+
+def _pooled_messages(n: int, frame_shape, burn_in: int, unroll: int,
+                     n_steps: int, lstm: int, group: int, rng) -> list:
+    """``n`` pooled sequence messages cut from random episodes by the
+    port's SequenceBuilder (carries and acting-time Q vectors random)."""
+    from apex_tpu_torch.actors.r2d2 import (drain_grouped,
+                                            pooled_sequence_message)
+    from apex_tpu_torch.training.r2d2 import SequenceBuilder
+
+    builder = SequenceBuilder(burn_in, unroll, n_steps, 0.99, pooled=True)
+    ready, msgs = [], []
+    while len(msgs) < n:
+        length = int(rng.integers(3, 40))
+        for t in range(length):
+            carry = ((rng.normal(size=(2, lstm)) * 0.3).astype(np.float32)
+                     if builder.needs_carry else (None, None))
+            builder.add_step(rng.integers(0, 255, frame_shape, np.uint8),
+                             int(rng.integers(0, 3)), float(rng.normal()),
+                             terminated=t == length - 1, carry_c=carry[0],
+                             carry_h=carry[1],
+                             q_values=rng.normal(size=3).astype(np.float32))
+        builder.end_episode()
+        ready.extend(builder.drain())
+        msgs.extend(drain_grouped(ready, group, pooled_sequence_message))
+    return msgs[:n]
+
+
+def r2d2_reference_phase(dev) -> None:
+    """The recurrent learner core on the card against the same core on
+    the CPU (42x42 frames, f32, TF32 off; the same weights, pooled
+    messages and sample uniforms): sampled sequences bit-exact (the
+    card's ``gather_rows`` against indexing), losses and priorities
+    within rtol 1e-4, weights within rtol 1e-3 after the steps."""
+    import copy
+
+    from apex_tpu_torch.models.recurrent import RecurrentDuelingDQN
+    from apex_tpu_torch.ops.losses import make_optimizer
+    from apex_tpu_torch.replay.seq_pool import SequenceFramePoolReplay
+    from apex_tpu_torch.training.r2d2 import R2D2Core
+    from apex_tpu_torch.training.state import create_train_state
+
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    burn, unroll, n_steps, lstm, b, shape = 2, 4, 1, 32, 16, (42, 42, 1)
+    rng = np.random.default_rng(SEED)
+    msgs = _pooled_messages(6, shape, burn, unroll, n_steps, lstm, 4, rng)
+    offsets = [rng.random(b, dtype=np.float32) for _ in msgs]
+    replay = SequenceFramePoolReplay(
+        capacity=64, t_total=burn + unroll + n_steps, lstm_features=lstm,
+        frame_shape=shape, frame_capacity=512)
+    model = RecurrentDuelingDQN(3, shape, compute_dtype=torch.float32,
+                                lstm_features=lstm,
+                                generator=torch.Generator().manual_seed(SEED))
+    opt = make_optimizer(lr=1e-3)
+    out = {}
+    try:
+        for name, device in (("cpu", torch.device("cpu")), ("cuda", dev)):
+            core = R2D2Core(replay=replay, optimizer=opt, batch_size=b,
+                            target_update_interval=2, burn_in=burn,
+                            n_steps=n_steps)
+            ts = create_train_state(copy.deepcopy(model).to(device), opt)
+            rs = replay.init(device)
+            for msg in msgs[:2]:
+                core.ingest(rs, msg["payload"], msg["priorities"])
+            batch = replay.sample(
+                rs, torch.from_numpy(offsets[0]).to(device), 0.4)[0]
+            losses, prios = [], []
+            for msg, u in zip(msgs[2:], offsets[1:]):
+                ts, rs, m = core.fused_step(ts, rs, msg["payload"],
+                                            msg["priorities"],
+                                            torch.from_numpy(u).to(device),
+                                            0.4)
+                losses.append(m["loss"].item())
+                prios.append(rs.sum_tree[replay.capacity:].cpu().clone())
+            out[name] = (batch, losses, torch.stack(prios).numpy(),
+                         [p.detach().cpu() for p in ts.params.parameters()])
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    for key in ("obs", "action", "mask", "state_c"):
+        check(torch.equal(out["cuda"][0][key].cpu(), out["cpu"][0][key]),
+              f"r2d2 reference: sampled {key} differs between card and CPU")
+    # f32 on both sides, TF32 off: cuDNN's convs and LSTM sum in another
+    # order than the CPU's, so agreement is to f32 round-off
+    np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=1e-4,
+                               err_msg="r2d2 reference: losses")
+    np.testing.assert_allclose(out["cuda"][2], out["cpu"][2], rtol=1e-4,
+                               err_msg="r2d2 reference: tree leaves")
+    for pg, pc in zip(out["cuda"][3], out["cpu"][3]):
+        np.testing.assert_allclose(pg.numpy(), pc.numpy(), rtol=1e-3,
+                                   atol=1e-5, err_msg="r2d2 reference: weights")
+    err = max(abs(a - c) for a, c in zip(out["cuda"][1], out["cpu"][1]))
+    log(f"r2d2 reference: card vs CPU recurrent learner agree over "
+        f"{len(msgs) - 2} fused steps (losses {out['cuda'][1]}, max abs "
+        f"difference {err:.3g})")
+
+
+class _RowsSeen:
+    """Counts the rows of each ``gather_rows`` call the sequence replay
+    makes (the wrapper itself counts the launches)."""
+
+    def __init__(self):
+        from apex_tpu_torch.replay import seq_pool
+        self.module, self.real, self.rows = seq_pool, seq_pool.gather_rows, []
+
+    def __enter__(self):
+        def counted(frames, ids):
+            self.rows.append(ids.shape[0])
+            return self.real(frames, ids)
+        self.module.gather_rows = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.module.gather_rows = self.real
+
+
+def r2d2_train_phase(dev, gather, profile_dir: str | None = None) -> dict:
+    """``R2D2ApexTrainer.train`` at full width with actor processes over
+    the shm ring and the default ingest pipeline.  With ``profile_dir``,
+    a few more fused steps on the last message run under the profiler."""
+    from apex_tpu_torch.native.ring import SEGMENT_PREFIX
+    from apex_tpu_torch.training.r2d2 import R2D2ApexTrainer
+
+    what = "r2d2 train"
+    cfg = _r2d2_cfg()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    trainer = R2D2ApexTrainer(cfg, publish_min_seconds=0.5)   # on "cuda"
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    pool, core = trainer.pool, trainer.core
+    log(f"{what}: {N_ACTORS} actor processes x {ENVS_PER_ACTOR} envs, "
+        f"{pool.threads} torch threads each, messages of "
+        f"{cfg.r2d2.sequence_group} sequences of {R2D2_T} steps, warm-up "
+        f"{TRAIN_WARMUP} transitions, batch {BATCH} sequences, capacity "
+        f"{trainer.replay.capacity} sequences, ring "
+        f"{tuple(trainer.replay_state.frames.shape)} u8 "
+        f"({trainer.replay.hbm_bytes() / 1e9:.3f} GB replay), built in "
+        f"{build_s:.3f} s")
+    ingested_seqs, last = [0], {}
+    ingest = core.ingest
+
+    def counted_ingest(rs, payload, prios):
+        ingested_seqs[0] += int(payload["n_seqs"])
+        last.update(payload=payload, prios=prios)
+        return ingest(rs, payload, prios)
+
+    object.__setattr__(core, "ingest", counted_ingest)
+    for name in gather.LAUNCH_COUNTS:                 # main path starts
+        gather.LAUNCH_COUNTS[name] = 0
+    with _RowsSeen() as seen:
+        t0 = time.perf_counter()
+        trainer.train(total_steps=R2D2_STEPS, max_seconds=R2D2_SECONDS,
+                      log_every=10)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = dict(gather.LAUNCH_COUNTS)             # main path ends
+    object.__setattr__(core, "ingest", ingest)
+    # train()'s own counts, before the timed and profiled steps below
+    steps, dispatches = trainer.steps, dict(trainer.dispatches)
+    rate, ingested = trainer.steps_rate.rate, trainer.ingested
+    frames_rate = trainer.frames_rate.rate
+
+    check(trainer.steps == R2D2_STEPS == trainer.train_state.step,
+          f"{what}: {trainer.steps} learner steps in {wall:.1f} s, want "
+          f"{R2D2_STEPS} within {R2D2_SECONDS} s")
+    check(launches == {"gather_rows": trainer.steps, "gather_stacks": 0},
+          f"{what}: gather launches {launches} in {trainer.steps} steps "
+          f"(want one gather_rows per step and no gather_stacks)")
+    check(seen.rows == [R2D2_ROWS] * trainer.steps,
+          f"{what}: gather_rows row counts {sorted(set(seen.rows))}, want "
+          f"{R2D2_ROWS} ({BATCH} sequences x {R2D2_T} steps) per step")
+    check(pool.chunk_plane == "shm",
+          f"{what}: messages rode {pool.chunk_plane}, not the shm ring")
+    check(trainer.param_version >= 2,
+          f"{what}: {trainer.param_version} param publishes")
+    versions = [v for _, v in
+                trainer.log.history.get("learner/episode_param_version", [])]
+    check(bool(versions) and min(versions) > 0,
+          f"{what}: episode stats' param versions {versions[:8]}")
+    stats = trainer._pipeline_last_stats
+    check(stats is not None and stats["slots"] > 0
+          and stats["merged_slots"] == 0 and stats["publishes"] >= 1,
+          f"{what}: pipeline stats {stats} (sequence messages never merge)")
+    n_logged = _finite_logged(trainer)
+    check(n_logged > 0, f"{what}: no learner metrics logged")
+    rs, c = trainer.replay_state, trainer.replay.capacity
+    leaves = rs.sum_tree[c:c + rs.size]
+    root, total = rs.sum_tree[1].item(), leaves.double().sum().item()
+    check(bool(torch.isfinite(leaves).all()) and bool((leaves > 0).all()),
+          f"{what}: non-finite or non-positive priorities")
+    check(abs(root - total) <= 1e-5 * total,
+          f"{what}: sum-tree root {root} != sum of leaves {total}")
+    check(rs.size == min(ingested_seqs[0], c),
+          f"{what}: {rs.size} sequences resident, {ingested_seqs[0]} "
+          f"ingested")
+    alive = [p.pid for p in pool.procs if p.is_alive()]
+    check(not alive, f"{what}: actor processes {alive} outlived train()")
+    left = [f for f in os.listdir("/dev/shm")
+            if f.startswith(f"{SEGMENT_PREFIX}-{os.getpid()}-")]
+    check(not left, f"{what}: segments left in /dev/shm: {left}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    plane = trainer.actor_plane()
+    check(plane is not None, f"{what}: no actor reported its timing")
+
+    # the fused step alone, synchronised, on the last message train() took
+    step_ms = []
+    for _ in range(R2D2_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_state, trainer.replay_state, metrics = core.fused_step(
+            trainer.train_state, trainer.replay_state, last["payload"],
+            last["prios"], trainer._offsets(), trainer._beta())
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    check(all(math.isfinite(float(v)) for v in metrics.values()),
+          f"{what}: non-finite metrics in the timed steps: {metrics}")
+    ms = statistics.median(step_ms[2:])
+    log(f"{what}: {steps} learner steps in {wall:.3f} s of train(); "
+        f"dispatches {dispatches}; {ingested} transitions and "
+        f"{ingested_seqs[0]} sequences ingested; param_version "
+        f"{trainer.param_version}; {len(versions)} episodes drained, param "
+        f"versions {min(versions)}..{max(versions)}; pipeline stats {stats}")
+    log(f"{what}: learner steps/s {rate:.3f} ({rate * BATCH:.1f} sequences/s "
+        f"sampled, {rate * BATCH * R2D2_T:.1f} frames/s through the "
+        f"learner); sequences ingested/s {ingested_seqs[0] / wall:.2f} over "
+        f"train(); env frames/s ingested {frames_rate:.1f} (last 100 "
+        f"dispatches), {ingested / wall:.1f} over train(); actors report "
+        f"{plane['frames_per_sec_sum']:.1f} frames/s in all")
+    if profile_dir:
+        msg = dict(payload=last["payload"], priorities=last["prios"],
+                   n_trans=0)
+        profile_steps(trainer, [msg] * PROFILE_STEPS, profile_dir,
+                      "chip_smoke_profile_r2d2.txt")
+    log(f"{what}: fused step at full width, synchronised, median of "
+        f"{R2D2_TIMED - 2} after train(): {ms:.3f} ms (all "
+        f"{[round(x, 3) for x in step_ms]}); actor phases policy_wait {plane['policy_wait_frac']:.4f} env_step "
+        f"{plane['env_step_frac']:.4f} drain {plane['drain_frac']:.4f}; "
+        f"peak memory {peak / 2**30:.3f} GiB; {n_logged} logged metrics "
+        f"finite; gather launches {launches}, {R2D2_ROWS} rows each; no "
+        f"actor alive, no segment left")
+    del trainer, core, last
+    torch.cuda.empty_cache()
+    return dict(launches=launches, wall=wall, steps_per_s=rate,
+                ms_per_fused_step=ms, peak_bytes=peak)
+
+
+def r2d2_single_phase(dev, gather) -> dict:
+    """``R2D2Trainer`` (the single-process driver) on phase 9's geometry:
+    a 64-sequence warm-up, then an update every 4 frames."""
+    from apex_tpu_torch.training.r2d2 import R2D2Trainer
+
+    what = "r2d2 single"
+    trainer = R2D2Trainer(_r2d2_cfg(), train_every=4)          # on "cuda"
+    for key in gather.LAUNCH_COUNTS:                  # this path starts
+        gather.LAUNCH_COUNTS[key] = 0
+    with _RowsSeen() as seen:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train(total_frames=R2D2_FRAMES, log_every=10,
+                      warmup_sequences=R2D2_WARMUP_SEQS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = dict(gather.LAUNCH_COUNTS)             # this path ends
+    steps = trainer.steps_rate.total
+    check(trainer.frames_rate.total == R2D2_FRAMES and steps > 0
+          and trainer.train_state.step == steps,
+          f"{what}: {trainer.frames_rate.total} frames, {steps} updates")
+    check(launches == {"gather_rows": steps, "gather_stacks": 0}
+          and seen.rows == [R2D2_ROWS] * steps,
+          f"{what}: gather launches {launches} in {steps} updates, rows "
+          f"{sorted(set(seen.rows))}")
+    check(trainer.sequences >= R2D2_WARMUP_SEQS
+          and trainer.replay_state.size == trainer.sequences,
+          f"{what}: {trainer.sequences} sequences ingested, "
+          f"{trainer.replay_state.size} resident")
+    n_logged = _finite_logged(trainer)
+    check(n_logged > 0, f"{what}: no learner metrics logged")
+    score = trainer.evaluate(episodes=1, max_steps=500)
+    check(math.isfinite(score), f"{what}: eval score {score}")
+    log(f"{what}: {R2D2_FRAMES} frames, {trainer.sequences} sequences and "
+        f"{steps} updates (batch {BATCH} sequences) in {wall:.3f} s: "
+        f"{R2D2_FRAMES / wall:.1f} frames/s, {steps / wall:.2f} updates/s "
+        f"over the run; {n_logged} logged metrics finite; gather launches "
+        f"{launches}; greedy eval {score} (1 episode)")
+    del trainer
+    torch.cuda.empty_cache()
+    return dict(launches=launches, frames_per_s=R2D2_FRAMES / wall,
+                steps_per_s=steps / wall)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR",
@@ -1133,15 +1504,22 @@ def main() -> int:
     full = pipeline_phase(dev, gather, msgs)
     saved = checkpoint_phase(dev, gather, msgs)
     dqn = dqn_phase(gather)
+    r2d2_reference_phase(dev)
+    r2d2 = r2d2_train_phase(dev, gather, args.profile)
+    r2d2_single = r2d2_single_phase(dev, gather)
     paths = {"train": loop["launches"], "train_serial": serial["launches"],
              "consume": result["launches"],
              "full_width_pipelined": full["pipelined"]["launches"],
              "full_width_serial": full["serial"]["launches"],
-             "checkpoint": saved["launches"], "dqn": dqn["launches"]}
+             "checkpoint": saved["launches"], "dqn": dqn["launches"],
+             "r2d2_train": r2d2["launches"],
+             "r2d2_single": r2d2_single["launches"]}
+    # each kernel's main path is the trainers' train() that runs it:
+    # ApexTrainer's for gather_stacks, R2D2ApexTrainer's for gather_rows;
+    # the other paths stand beside
+    main_path = {"gather_stacks": "train", "gather_rows": "r2d2_train"}
     for row in rows:
-        # train() with its default pipeline is the system's entry point:
-        # its counts are the main path's; the other paths stand beside
-        row["launches"] = loop["launches"][row["name"]]
+        row["launches"] = paths[main_path[row["name"]]][row["name"]]
         row["launches_by_path"] = {path: counts[row["name"]]
                                    for path, counts in paths.items()}
 

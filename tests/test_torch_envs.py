@@ -40,8 +40,32 @@ def test_catch_trajectories_match(env_id):
             pytest.fail("episode did not end")
 
 
+def test_partially_observable_cartpole_matches():
+    """``ApexCartPolePO-v0``: CartPole with the velocities masked, the
+    recurrent family's env; same observations, rewards and ends."""
+    env_id = "ApexCartPolePO-v0"
+    jenv = jax_make_env(env_id, JaxEnvConfig(env_id=env_id), seed=3,
+                        max_episode_steps=60)
+    env = make_env(env_id, EnvConfig(env_id=env_id), seed=3,
+                   max_episode_steps=60)
+    assert env.observation_space.shape == jenv.observation_space.shape == (2,)
+    assert num_actions(env) == 2
+    actions = np.random.default_rng(1).integers(0, 2, 200)
+    for episode in range(3):
+        want, _ = jenv.reset(seed=20 + episode)
+        got, _ = env.reset(seed=20 + episode)
+        np.testing.assert_array_equal(got, want)
+        for a in actions:
+            want_step = jenv.step(int(a))
+            got_step = env.step(int(a))
+            np.testing.assert_array_equal(got_step[0], want_step[0])
+            assert got_step[1:4] == want_step[1:4]
+            if got_step[2] or got_step[3]:
+                break
+
+
 def test_registry_refuses_what_is_not_ported():
-    for env_id in ("ApexCartPolePO-v0", "ApexRally-v0",
+    for env_id in ("ApexContinuousNav-v0", "ApexRally-v0",
                    "SeaquestNoFrameskip-v4"):
         with pytest.raises(ValueError, match="not ported"):
             make_env(env_id)
