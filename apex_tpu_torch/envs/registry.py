@@ -1,8 +1,8 @@
 """Env construction for the port.
 
 Counterpart of :mod:`apex_tpu.envs.registry` for the envs the port runs:
-``ApexCartPole-v0``, its velocity-masked ``ApexCartPolePO-v0`` and the
-``ApexCatch*`` family.  :func:`make_env`
+``ApexCartPole-v0``, its velocity-masked ``ApexCartPolePO-v0``, the
+``ApexCatch*`` family and ``ApexRally{,Small}-v0``.  :func:`make_env`
 builds them un-stacked by default (``stack_frames=False``), the form the
 frame-pool actors consume: stacks are rebuilt on the device at sample
 time and in :class:`~apex_tpu_torch.replay.frame_chunks.FrameChunkBuilder`
@@ -19,7 +19,8 @@ from typing import Any
 import numpy as np
 
 from apex_tpu_torch.config import EnvConfig
-from apex_tpu_torch.envs.toy import Box, CartPoleEnv, CatchEnv, VelocityMask
+from apex_tpu_torch.envs.toy import (Box, CartPoleEnv, CatchEnv, RallyEnv,
+                                     VelocityMask)
 
 
 class TimeLimit:
@@ -85,11 +86,14 @@ def make_env(env_id: str | None = None, cfg: EnvConfig | None = None,
     """The envs of ``apex_tpu.envs.registry`` that the port serves
     (``registry.py:77-101``): ``ApexCartPole-v0``, whose own limit is 500
     steps unless ``max_episode_steps`` is given, ``ApexCartPolePO-v0``,
-    the same with its velocities hidden, and the Catch variants:
-    Small 7x7 at 42x42 with 3 balls, Medium 11x11 at 44x44 with 4 balls,
-    full 21x21 at 84x84 with 5 balls, where ``max_episode_steps`` wraps
-    the env in :class:`TimeLimit`.  ``stack_frames`` stacks the last
-    ``cfg.frame_stack`` frames of a pixel env."""
+    the same with its velocities hidden, the Catch variants (Small 7x7
+    at 42x42 with 3 balls, Medium 11x11 at 44x44 with 4 balls, full 21x21
+    at 84x84 with 5 balls) and the Rally variants (Small: a 14-cell court
+    at 42x42, 2 points, the agent's paddle half-height 2 and a 0.45-speed
+    opponent; full: 21 cells at 84x84, 3 points, the symmetric speed-1
+    duel).  For the pixel envs ``max_episode_steps`` wraps the env in
+    :class:`TimeLimit` and ``stack_frames`` stacks the last
+    ``cfg.frame_stack`` frames."""
     cfg = cfg or EnvConfig()
     env_id = env_id or cfg.env_id
     if env_id in ("ApexCartPole-v0", "ApexCartPolePO-v0"):
@@ -97,8 +101,12 @@ def make_env(env_id: str | None = None, cfg: EnvConfig | None = None,
                if max_episode_steps is not None else CartPoleEnv())
         if env_id == "ApexCartPolePO-v0":
             env = VelocityMask(env)
-    elif env_id.startswith("ApexCatch"):
-        if "Small" in env_id:
+    elif env_id.startswith(("ApexCatch", "ApexRally")):
+        if env_id.startswith("ApexRally"):
+            env = (RallyEnv(grid=14, pixels=42, points=2, agent_half=2,
+                            opp_speed=0.45)
+                   if "Small" in env_id else RallyEnv())
+        elif "Small" in env_id:
             env = CatchEnv(grid=7, pixels=42, balls=3)
         elif "Medium" in env_id:
             env = CatchEnv(grid=11, pixels=44, balls=4)
@@ -110,8 +118,8 @@ def make_env(env_id: str | None = None, cfg: EnvConfig | None = None,
             env = FrameStack(env, cfg.frame_stack)
     else:
         raise ValueError(f"env {env_id!r} is not ported yet; the port "
-                         f"serves ApexCartPole-v0, ApexCartPolePO-v0 and "
-                         f"the ApexCatch* family")
+                         f"serves ApexCartPole-v0, ApexCartPolePO-v0, "
+                         f"the ApexCatch* family and ApexRally{{,Small}}-v0")
     if seed is not None:
         env.reset(seed=seed)
     return env

@@ -1,7 +1,8 @@
 """Numpy-native envs, free of gymnasium.
 
 Counterparts of :class:`apex_tpu.envs.toy.CartPoleEnv` (``toy.py:23-77``),
-:class:`apex_tpu.envs.toy.VelocityMask` (``toy.py:78-93``) and
+:class:`apex_tpu.envs.toy.VelocityMask` (``toy.py:78-93``),
+:class:`apex_tpu.envs.toy.RallyEnv` (``toy.py:133-270``) and
 :class:`apex_tpu.envs.toy.CatchEnv` (``toy.py:272-324``) with the same
 ``reset``/``step`` semantics.  The port cannot import gymnasium (the GPU
 host does not ship it), so the envs carry their own minimal space
@@ -120,6 +121,128 @@ class VelocityMask:
 
     def close(self) -> None:
         self.env.close()
+
+
+class RallyEnv:
+    """Two-paddle rally against a scripted opponent, the Pong-shaped pixel
+    task (``apex_tpu/envs/toy.py:133-270``).
+
+    Court: ``grid x grid`` cells rendered to ``pixels x pixels x 1`` u8.
+    The opponent guards column 0, the agent column ``grid-1``; actions
+    0=stay, 1=up, 2=down.  The ball advances one column per step; a paddle
+    contact sets its vertical speed from the hit offset (centre shallow,
+    edge steep, at least ``MIN_VY``) and the walls reflect it.  The
+    opponent tracks the ball at ``opp_speed`` cells per step.  Reward +1
+    when the opponent misses, -1 when the agent does; an episode is
+    ``points`` points.  ``agent_half`` widens only the agent's paddle.
+
+    ``dtype`` is the continuous state's compute dtype: float64 (the
+    default) is the JAX package's python-float arithmetic, float32 makes
+    every op the f32 op of the batched device env
+    (:mod:`apex_tpu_torch.envs.device_envs`).
+    """
+
+    MAX_VY = 1.75          # edge-hit deflection; outruns the speed-1 opponent
+    MIN_VY = 0.5           # centre hits stay live (no horizontal stalemates)
+
+    def __init__(self, grid: int = 21, pixels: int = 84, points: int = 3,
+                 paddle_half: int = 1, agent_half: int | None = None,
+                 opp_speed: float = 1.0, dtype=np.float64):
+        self.grid, self.pixels, self.points = grid, pixels, points
+        self.half = paddle_half
+        self.agent_half = self.half if agent_half is None else agent_half
+        self.opp_speed = opp_speed
+        self._scalar = np.dtype(dtype).type
+        self.observation_space = Box(0, 255, (pixels, pixels, 1),
+                                     np.dtype(np.uint8))
+        self.action_space = Discrete(3)
+        self._scale = pixels // grid
+        self.np_random: np.random.Generator | None = None
+
+    # -- mechanics ---------------------------------------------------------
+
+    def reset(self, *, seed: int | None = None, options=None):
+        if seed is not None or self.np_random is None:
+            self.np_random = np.random.default_rng(seed)
+        self._agent_y = self._opp_y = self._scalar((self.grid - 1) / 2)
+        self._played = 0
+        self._serve(toward_agent=bool(self.np_random.random() < 0.5))
+        return self._render(), {}
+
+    def _serve(self, toward_agent: bool) -> None:
+        self._bx = self._scalar((self.grid - 1) / 2)
+        self._by = self._scalar(self.np_random.integers(2, self.grid - 2))
+        self._vx = 1 if toward_agent else -1
+        self._vy = self._scalar(self.np_random.choice([-1.0, -0.5, 0.5, 1.0]))
+
+    def _deflect(self, offset: float) -> float:
+        """Paddle-contact vertical speed from the normalized hit offset
+        (centre 0 -> shallow, edge +-1 -> MAX_VY steep)."""
+        vy = self.MAX_VY * offset
+        if abs(vy) < self.MIN_VY:
+            sign = 1.0 if self.np_random.random() < 0.5 else -1.0
+            vy = self.MIN_VY * sign
+        return self._scalar(np.clip(vy, -self.MAX_VY, self.MAX_VY))
+
+    def step(self, action):
+        g, half, ahalf = self.grid, self.half, self.agent_half
+        self._agent_y = self._scalar(np.clip(
+            self._agent_y + (0, -1, 1)[int(action)], ahalf, g - 1 - ahalf))
+        # the scripted opponent tracks the ball at all times
+        self._opp_y = self._scalar(np.clip(
+            self._opp_y + np.clip(self._by - self._opp_y,
+                                  -self.opp_speed, self.opp_speed),
+            half, g - 1 - half))
+        # ball advance + wall reflection
+        self._bx += self._vx
+        self._by += self._vy
+        while self._by < 0 or self._by > g - 1:
+            if self._by < 0:
+                self._by = -self._by
+            else:
+                self._by = 2 * (g - 1) - self._by
+            self._vy = -self._vy
+
+        reward = 0.0
+        if self._bx <= 0:                       # opponent's goal column
+            if abs(self._by - self._opp_y) <= half + 0.5:
+                self._bx, self._vx = self._scalar(0.0), 1
+                self._vy = self._deflect(
+                    (self._by - self._opp_y) / (half + 0.5))
+            else:
+                reward = 1.0
+                self._played += 1
+                self._serve(toward_agent=False)
+        elif self._bx >= g - 1:                 # agent's goal column
+            if abs(self._by - self._agent_y) <= ahalf + 0.5:
+                self._bx, self._vx = self._scalar(g - 1), -1
+                self._vy = self._deflect(
+                    (self._by - self._agent_y) / (ahalf + 0.5))
+            else:
+                reward = -1.0
+                self._played += 1
+                self._serve(toward_agent=True)
+        terminated = self._played >= self.points
+        return self._render(), reward, terminated, False, {}
+
+    # -- rendering ---------------------------------------------------------
+
+    def _block(self, img, row: float, col: int, h: int, value: int) -> None:
+        s = self._scale
+        r0 = int(np.clip(round(row) - h, 0, self.grid - 1)) * s
+        r1 = (int(np.clip(round(row) + h, 0, self.grid - 1)) + 1) * s
+        img[r0:r1, col * s:(col + 1) * s] = value
+
+    def _render(self) -> np.ndarray:
+        img = np.zeros((self.pixels, self.pixels, 1), np.uint8)
+        self._block(img, self._opp_y, 0, self.half, 128)
+        self._block(img, self._agent_y, self.grid - 1, self.agent_half, 128)
+        bx = int(np.clip(round(self._bx), 0, self.grid - 1))
+        self._block(img, self._by, bx, 0, 255)
+        return img
+
+    def close(self) -> None:
+        pass
 
 
 class CatchEnv:

@@ -46,11 +46,15 @@ class LSTM(nn.Module):
         self.weight_hh = nn.Parameter(torch.empty(4 * features, features))
         self.bias_hh = nn.Parameter(torch.zeros(4 * features))
         self.register_buffer("bias_ih", torch.zeros(4 * features))
-        # flax's initializers: lecun-normal input kernels, an orthogonal
+        # the initializers of flax's OptimizedLSTMCell: lecun-normal input
+        # kernels (variance_scaling(1, "fan_in", "truncated_normal"): a
+        # normal truncated at +-2 std, its std raised by 1/0.87962566 so
+        # the truncated draw keeps variance 1/fan_in), an orthogonal
         # recurrent kernel per gate, zero biases
+        std = in_features ** -0.5 / 0.87962566103423978
         with torch.no_grad():
-            self.weight_ih.normal_(0.0, in_features ** -0.5,
-                                   generator=generator)
+            nn.init.trunc_normal_(self.weight_ih, 0.0, std, -2.0 * std,
+                                  2.0 * std, generator=generator)
             for gate in self.weight_hh.view(4, features, features):
                 nn.init.orthogonal_(gate, generator=generator)
 

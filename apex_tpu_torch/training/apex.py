@@ -146,17 +146,23 @@ class ConcurrentTrainer(CheckpointableTrainer):
         """Hand the online weights to the pool under the next version.
         Pipelined: a copy made on the learner's stream (the optimizer
         updates the weights in place) goes to the staging thread, which
-        waits for it and makes the device-to-host copy.  Serial: the
-        device-to-host copy runs here."""
+        waits for it and makes the device-to-host copy, or, for a pool
+        that ``accepts_device_params`` (on-device rollouts,
+        :class:`~apex_tpu_torch.training.anakin.AnakinPool`), hands the
+        copy on as it is.  Serial: such a pool gets the device copy, any
+        other the device-to-host copy, made here."""
         self.param_version += 1
-        if self._pipeline is not None:
-            self._pipeline.publish(
-                self.param_version,
-                {name: t.detach().clone() for name, t in
-                 self.train_state.params.state_dict().items()})
+        params = self.train_state.params
+        if (self._pipeline is not None
+                or getattr(self.pool, "accepts_device_params", False)):
+            copy = {name: t.detach().clone()
+                    for name, t in params.state_dict().items()}
+            if self._pipeline is not None:
+                self._pipeline.publish(self.param_version, copy)
+            else:
+                self.pool.publish_params(self.param_version, copy)
             return
-        self.pool.publish_params(self.param_version,
-                                 host_params(self.train_state.params))
+        self.pool.publish_params(self.param_version, host_params(params))
 
     def request_stop(self) -> None:
         """Ask a running :meth:`train` (possibly in another thread) to

@@ -101,12 +101,16 @@ def _impose(target, raw, where: str):
     return type(target)(raw)
 
 
-def restore_bundle(path: str, target: dict) -> tuple[dict, dict]:
+def restore_bundle(path: str, target: dict,
+                   check=None) -> tuple[dict, dict]:
     """Impose the saved state onto ``target``, a bundle of the same
     structure: its tensors are overwritten in place on their own devices;
-    the returned bundle carries them and the saved numbers.  Returns
-    ``(bundle, meta)``."""
+    the returned bundle carries them and the saved numbers.  ``check``,
+    when given, is called with the saved meta before anything is imposed
+    (to refuse a file before it overwrites).  Returns ``(bundle, meta)``."""
     raw, meta = load_raw(path)
+    if check is not None:
+        check(meta)
     return _impose(target, raw, ""), meta
 
 

@@ -18,7 +18,9 @@ background staging thread:
   FIFO ring of ``depth`` slots, whose blocking put backpressures the pool
   (and so the actors) as the serial drain's queue does;
 * serves param publishes: the trainer hands over a copy of its weights and
-  this thread makes the device-to-host copy the actors need.
+  this thread makes the device-to-host copy the actors need, or, for a
+  pool that ``accepts_device_params`` (on-device rollouts), hands the
+  device copy on after its stream has waited for it.
 
 Staging.  On a CUDA device each of a slot's arrays is copied into pinned
 host memory (``Tensor.pin_memory()``) and from there to the device with
@@ -463,8 +465,21 @@ class IngestPipeline:
         if req is None:
             return
         version, params, ready = req
-        if ready is not None:
-            ready.synchronize()
-        self.pool.publish_params(
-            version, {name: t.cpu().numpy() for name, t in params.items()})
+        if getattr(self.pool, "accepts_device_params", False):
+            # on-device rollouts take the device copy: this thread's
+            # stream (where the pool's engine loads it) waits for the
+            # copy's event instead of the host, and owns the tensors'
+            # later reads
+            if ready is not None:
+                stream = torch.cuda.current_stream(self.device)
+                stream.wait_event(ready)
+                for t in params.values():
+                    t.record_stream(stream)
+            self.pool.publish_params(version, params)
+        else:
+            if ready is not None:
+                ready.synchronize()
+            self.pool.publish_params(
+                version, {name: t.cpu().numpy()
+                          for name, t in params.items()})
         self.stats["publishes"] += 1

@@ -65,12 +65,31 @@ Phases, each of which exits nonzero on failure before any result line:
    synchronised fused step's ms and peak memory.  Last, ``R2D2Trainer``
    for 1024 frames on the same geometry.  Phase 2 times ``gather_rows``
    at this sample's shape.
+10. ondevice -- the on-device planes, at phase 5's geometry
+   (``ApexCatch-v0`` 84x84x1 u8, stack 4, batch 512, capacity 2^19, ring
+   2^20, the 32-lane ladder, 64-transition chunks, rollout_len 64).
+   Batched Catch and Rally, 32 lanes x 512 steps, bit-equal on the card
+   and on the CPU from the same draws and actions.  The rollout engine on
+   ``ApexRally-v0`` at eps 1, card against CPU from the same f32 weights
+   and draws, TF32 off: chunks bit-equal, q-values and priorities within
+   rtol 1e-4 plus 1e-4 x max |q|.  The engine alone on Catch and Rally:
+   no host sync in its step loop (CUDA's sync-debug error mode), device
+   launches per env step under the profiler, env frames/s over 8 warm
+   dispatches.  ``ApexTrainer.train`` over ``AnakinPool`` for 100 steps,
+   pipelined and serial; ``FusedApexTrainer.train`` (4 macro steps per
+   dispatch, one learner step each) for 64 steps; each checks one
+   ``gather_stacks`` launch per learner step, priority write-backs, the
+   sum tree and finite metrics, and prints learner steps/s, env frames/s,
+   ms per engine dispatch and peak memory beside phase 5's.  Last, a
+   small ``FusedApexTrainer`` on the card under deterministic cuDNN:
+   2 dispatches of 3 macro steps bit-equal to 6 of 1.
 
 Then it prints the card's name and power limit, one ``{"kernels": ...}``
 line (``launches`` counts each kernel's main path: phase 5's pipelined
 ``train()`` for ``gather_stacks``, phase 9's for ``gather_rows``;
-``launches_by_path`` adds the serial drain, phase 4's consume path and
-phases 6-9) and, last,
+``launches_by_path`` adds the serial drain, phase 4's consume path,
+phases 6-9 and phase 10's ``anakin_train``, ``anakin_serial`` and
+``fused_train``) and, last,
 ``{"ok": true, "device": {...}}``.  It needs one card
 and exits nonzero without one.  ``--profile DIR`` also traces a few more
 fused steps of phases 4 and 9 with ``torch.profiler``, writes device time
@@ -1463,6 +1482,500 @@ def r2d2_single_phase(dev, gather) -> dict:
                 steps_per_s=steps / wall)
 
 
+# -- phase 10: the on-device planes ------------------------------------------
+
+ONDEVICE_LANES = N_ACTORS * ENVS_PER_ACTOR    # the 32-lane ladder (4 x 8)
+ONDEVICE_T = 64              # rollout_len: env steps per engine dispatch
+ONDEVICE_N = 4               # steps_per_dispatch of the fused step
+ENV_STEPS = 512              # batched env steps held card against CPU
+REFERENCE_DISPATCHES = 2     # engine dispatches held card against CPU
+ENGINE_DISPATCHES = 8        # warm engine dispatches timed per env
+PROFILE_T = 8                # steps of the dispatch traced for launches
+FUSED_STEPS = 64             # learner steps of FusedApexTrainer.train
+
+
+def _ondevice_cfg(env_id: str, pipelined: bool = True, small: bool = False):
+    """Phase 5's geometry for the on-device planes: ``env_id`` at full
+    width, batch 512, capacity 2^19 (ring 2^20), the 32-lane ladder,
+    64-transition chunks, a 4096-transition warm-up.  ``small`` is the
+    fused == serial check's cut: ``ApexCatchSmall`` 4 lanes, batch 32,
+    capacity 2^12."""
+    from apex_tpu_torch.config import (ActorConfig, ApexConfig, EnvConfig,
+                                       LearnerConfig, ReplayConfig)
+    if small:
+        return ApexConfig(
+            env=EnvConfig(env_id=env_id, seed=SEED),
+            replay=ReplayConfig(capacity=2 ** 12, warmup=64),
+            learner=LearnerConfig(batch_size=32, target_update_interval=5,
+                                  publish_interval=2),
+            actor=ActorConfig(n_actors=1, n_envs_per_actor=4,
+                              send_interval=8))
+    return ApexConfig(
+        env=EnvConfig(env_id=env_id, seed=SEED),
+        replay=ReplayConfig(capacity=CAPACITY, warmup=TRAIN_WARMUP),
+        learner=LearnerConfig(batch_size=BATCH, target_update_interval=500,
+                              ingest_pipeline=pipelined),
+        actor=ActorConfig(n_actors=N_ACTORS, n_envs_per_actor=ENVS_PER_ACTOR,
+                          send_interval=SEND_INTERVAL))
+
+
+def device_env_phase(dev) -> dict:
+    """Batched Catch and Rally at 32 lanes for 512 steps on the card and on
+    the CPU from the same draws and actions: observations, terminal
+    frames, rewards and episode ends bit-equal at every step.  Then the
+    card's env alone, timed."""
+    from apex_tpu_torch.envs.device_envs import DrawSource, make_device_env
+
+    lanes, rates = ONDEVICE_LANES, {}
+    for env_id in ("ApexCatch-v0", "ApexRally-v0"):
+        card = make_device_env(env_id, device=dev)
+        host = make_device_env(env_id, device="cpu")
+        draws = DrawSource(torch.Generator().manual_seed(SEED))
+        first = draws.reset(host.reset_sites, lanes)
+        steps = draws.dispatch(host.step_sites, ENV_STEPS, lanes)
+        actions = torch.randint(0, 3, (ENV_STEPS, lanes),
+                                generator=torch.Generator().manual_seed(SEED))
+        c_steps = {k: v.to(dev) for k, v in steps.items()}
+        c_actions = actions.to(dev)
+        hs, h_obs = host.reset(first)
+        cs, c_obs = card.reset({k: v.to(dev) for k, v in first.items()})
+        check(torch.equal(c_obs.cpu(), h_obs), f"{env_id}: reset frames")
+        dones = 0
+        for t in range(ENV_STEPS):
+            h = host.step(hs, actions[t], {k: v[t] for k, v in steps.items()})
+            c = card.step(cs, c_actions[t],
+                          {k: v[t] for k, v in c_steps.items()})
+            hs, cs = h[0], c[0]
+            for what, x, y in zip(("obs", "reward", "done", "final frame"),
+                                  c[1:], h[1:]):
+                check(torch.equal(x.cpu(), y),
+                      f"{env_id}: {what} differs card vs CPU at step {t}")
+            dones += int(h[3].sum())
+        check(dones >= lanes, f"{env_id}: {dones} episode ends in "
+              f"{ENV_STEPS} steps x {lanes} lanes")
+        cs, _ = card.reset({k: v.to(dev) for k, v in first.items()})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(ENV_STEPS):
+            cs = card.step(cs, c_actions[t],
+                           {k: v[t] for k, v in c_steps.items()})[0]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rates[env_id] = ENV_STEPS * lanes / wall
+        log(f"ondevice envs {env_id}: {ENV_STEPS} steps x {lanes} lanes "
+            f"bit-equal card vs CPU (obs, final frames, rewards, dones; "
+            f"{dones} episode ends); the card's env alone "
+            f"{wall / ENV_STEPS * 1e3:.4f} ms per batched step, "
+            f"{rates[env_id]:.1f} env frames/s")
+    return rates
+
+
+class _Recorded:
+    """A CPU draw source that keeps what it drew, for :class:`_Played`."""
+
+    def __init__(self, seed: int):
+        from apex_tpu_torch.envs.device_envs import DrawSource
+        self.source = DrawSource(torch.Generator().manual_seed(seed))
+        self.log: list = []
+
+    def reset(self, sites, n):
+        self.log.append(self.source.reset(sites, n))
+        return self.log[-1]
+
+    def dispatch(self, sites, steps, n):
+        self.log.append(self.source.dispatch(sites, steps, n))
+        return self.log[-1]
+
+
+class _Played:
+    """Replays a :class:`_Recorded` source's draws, in order, on ``dev``."""
+
+    def __init__(self, recorded: _Recorded, dev):
+        self.recorded, self.dev, self.i = recorded, dev, 0
+
+    def _next(self):
+        self.i += 1
+        return {k: v.to(self.dev) for k, v in
+                self.recorded.log[self.i - 1].items()}
+
+    def reset(self, sites, n):
+        return self._next()
+
+    def dispatch(self, sites, steps, n):
+        return self._next()
+
+
+def anakin_reference_phase(dev) -> None:
+    """The rollout engine on ``ApexRally-v0`` at full width, eps 1 on every
+    lane, on the card and on the CPU from the same f32 weights and draws
+    with TF32 off: over two dispatches the sealed chunks' frames, refs,
+    actions, rewards, discounts and counts and the episode tallies
+    bit-equal; q-values and acting priorities within rtol 1e-4 plus
+    1e-4 x max |q| (cuDNN's and the CPU's f32 convs round differently,
+    and ``|target - q|`` magnifies it)."""
+    import copy
+
+    from apex_tpu_torch.envs.device_envs import make_device_env
+    from apex_tpu_torch.models.dueling import DuelingDQN
+    from apex_tpu_torch.training.anakin import (AnakinRollout,
+                                                acting_priorities)
+    from apex_tpu_torch.training.apex import dqn_env_specs
+
+    cfg = _ondevice_cfg("ApexRally-v0")
+    spec = dict(dqn_env_specs(cfg)[0], compute_dtype=torch.float32)
+    host_model = DuelingDQN(**spec,
+                            generator=torch.Generator().manual_seed(SEED))
+    card_model = copy.deepcopy(host_model).to(dev)
+    recorded = _Recorded(SEED)
+    kw = dict(n_envs=ONDEVICE_LANES, epsilons=[1.0] * ONDEVICE_LANES,
+              frame_stack=STACK, chunk_transitions=SEND_INTERVAL,
+              rollout_len=ONDEVICE_T)
+    host = AnakinRollout(make_device_env("ApexRally-v0", device="cpu"),
+                         host_model, draws=recorded, **kw)
+    card = AnakinRollout(make_device_env("ApexRally-v0", device=dev),
+                         card_model, draws=_Played(recorded, dev), **kw)
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        worst = {"q": 0.0, "priorities": 0.0}
+        chunks = 0
+        for d in range(REFERENCE_DISPATCHES):
+            h, c = host.dispatch(), card.dispatch()
+            h["priorities"] = acting_priorities(h)
+            c["priorities"] = acting_priorities(c)
+            c = {k: v.cpu() for k, v in c.items()}
+            check(torch.equal(c["sealed"], h["sealed"]),
+                  f"anakin reference: seals differ in dispatch {d}")
+            real = (torch.arange(host.M)[None, :]
+                    < h["sealed"][:, None])
+            for key in ("frames", "action", "reward", "discount", "obs_ref",
+                        "next_ref", "nf", "nt"):
+                check(torch.equal(c[key][real], h[key][real]),
+                      f"anakin reference: {key} differs card vs CPU in "
+                      f"dispatch {d}")
+            for key in ("done", "ep_ret", "ep_len"):
+                check(torch.equal(c[key], h[key]),
+                      f"anakin reference: {key} differs in dispatch {d}")
+            chunks += int(real.sum())
+            if not bool(real.any()):
+                continue
+            qmax = float(h["q0"][real].abs().max())
+            for key, names in (("q", ("q0", "qn")),
+                               ("priorities", ("priorities",))):
+                for name in names:
+                    x, y = c[name][real], h[name][real]
+                    err = (x - y).abs()
+                    check(bool((err <= 1e-4 * y.abs() + 1e-4 * qmax).all()),
+                          f"anakin reference: {name} off by "
+                          f"{float(err.max())} in dispatch {d}")
+                    worst[key] = max(worst[key],
+                                     float((err / (y.abs() + qmax)).max()))
+        check(chunks > 0, "anakin reference: no chunk sealed")
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    log(f"anakin reference (ApexRally-v0, {ONDEVICE_LANES} lanes x T "
+        f"{ONDEVICE_T}, eps 1, f32, TF32 off): {REFERENCE_DISPATCHES} "
+        f"dispatches, {chunks} sealed chunks bit-equal card vs CPU "
+        f"(frames, refs, actions, rewards, discounts, counts, episode "
+        f"tallies); largest |card - CPU| / (|CPU| + max|q|): q-values "
+        f"{worst['q']:.3e}, priorities {worst['priorities']:.3e}")
+
+
+def _profile_dispatch(engine) -> dict:
+    """One engine dispatch under ``torch.profiler``, tracing the device
+    only: device launches, device time and the busy share of the
+    dispatch's wall time.  The engine's dispatch should be short
+    (``PROFILE_T`` steps): a full one is tens of thousands of events, and
+    traces of 64-step Rally dispatches counted 564-742 launches a step
+    from run to run where the step's op count does not change."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
+        engine.dispatch()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    avgs = prof.key_averages()
+    device_us = sum(a.self_device_time_total for a in avgs
+                    if a.device_type == DeviceType.CUDA)
+    launches = sum(a.count for a in avgs if a.device_type == DeviceType.CUDA)
+    return dict(launches=launches, device_us=device_us, wall_us=wall_us)
+
+
+def engine_phase(dev) -> dict:
+    """The rollout engine alone at 32 lanes x T 64 with the DQN spec's
+    bf16 model, on ``ApexCatch-v0`` and ``ApexRally-v0``: one dispatch in
+    CUDA's sync-debug error mode (any host sync inside the T-step loop
+    raises), the device launches of a ``PROFILE_T``-step dispatch under
+    the profiler (its prologue and epilogue included), then env frames/s
+    over 8 warm dispatches with the host epilogue (``rollout()``)."""
+    from apex_tpu_torch.training.anakin import make_anakin_engine
+
+    out = {}
+    for env_id in ("ApexCatch-v0", "ApexRally-v0"):
+        cfg = _ondevice_cfg(env_id)
+        probe = make_anakin_engine(cfg, rollout_len=PROFILE_T)
+        probe.dispatch()
+        prof = _profile_dispatch(probe)
+        del probe
+        eng = make_anakin_engine(cfg, rollout_len=ONDEVICE_T)  # on "cuda"
+        eng.rollout()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eng.dispatch()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        frames = ENGINE_DISPATCHES * eng.T * eng.B
+        t0 = time.perf_counter()
+        n_msgs = 0
+        for _ in range(ENGINE_DISPATCHES):
+            msgs, _ = eng.rollout()
+            n_msgs += len(msgs)
+        wall = time.perf_counter() - t0
+        check(n_msgs > 0, f"engine {env_id}: no chunk sealed")
+        out[env_id] = dict(frames_per_s=frames / wall,
+                           ms_per_dispatch=wall / ENGINE_DISPATCHES * 1e3)
+        log(f"engine {env_id}: {eng.B} lanes x T {eng.T}, no host sync in "
+            f"the step loop (sync-debug error mode); a profiled "
+            f"{PROFILE_T}-step dispatch: {prof['launches']} device launches "
+            f"({prof['launches'] / PROFILE_T:.1f} per env step), device "
+            f"{prof['device_us'] / 1e3:.3f} ms of {prof['wall_us'] / 1e3:.3f}"
+            f" ms wall, busy {prof['device_us'] / prof['wall_us']:.3f}; "
+            f"{ENGINE_DISPATCHES} warm dispatches with the host epilogue: "
+            f"{wall / ENGINE_DISPATCHES * 1e3:.3f} ms each, "
+            f"{frames / wall:.1f} env frames/s, {n_msgs} chunks")
+        del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tree_consistent(rs, capacity: int, what: str) -> None:
+    leaves = rs.sum_tree[capacity:capacity + rs.size]
+    root, total = rs.sum_tree[1].item(), leaves.double().sum().item()
+    check(bool(torch.isfinite(leaves).all()) and bool((leaves > 0).all()),
+          f"{what}: non-finite or non-positive priorities")
+    check(abs(root - total) <= 1e-5 * total,
+          f"{what}: sum-tree root {root} != sum of leaves {total}")
+
+
+def anakin_train_phase(dev, gather, pipelined: bool) -> dict:
+    """``ApexTrainer.train`` fed by ``AnakinPool`` (the rollout engine on
+    the card in place of actor processes) at phase 5's geometry for 100
+    learner steps, with the ingest pipeline (the engine then runs on its
+    staging thread) or the serial drain."""
+    from apex_tpu_torch.training.anakin import AnakinPool
+    from apex_tpu_torch.training.apex import ApexTrainer
+
+    what = "anakin train" if pipelined else "anakin train (serial drain)"
+    cfg = _ondevice_cfg("ApexCatch-v0", pipelined)
+    torch.cuda.reset_peak_memory_stats(dev)
+    pool = AnakinPool(cfg)                                # on "cuda"
+    trainer = ApexTrainer(cfg, pool=pool, publish_min_seconds=0.5)
+    engine, rollout_ms = pool.engine, []
+    rollout = engine.rollout
+
+    def timed_rollout():
+        t0 = time.perf_counter()
+        got = rollout()
+        rollout_ms.append((time.perf_counter() - t0) * 1e3)
+        return got
+
+    engine.rollout = timed_rollout
+    for name in gather.LAUNCH_COUNTS:                 # this path starts
+        gather.LAUNCH_COUNTS[name] = 0
+    t0 = time.perf_counter()
+    trainer.train(total_steps=LOOP_STEPS, max_seconds=LOOP_SECONDS,
+                  log_every=25)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(gather.LAUNCH_COUNTS)             # this path ends
+
+    check(trainer.steps == LOOP_STEPS,
+          f"{what}: {trainer.steps} learner steps in {wall:.1f} s")
+    check(launches == {"gather_rows": 0, "gather_stacks": trainer.steps},
+          f"{what}: gather launches {launches} in {trainer.steps} steps")
+    check(trainer.param_version >= 2 and pool._acting_version >= 2,
+          f"{what}: {trainer.param_version} publishes, the engine acted "
+          f"on version {pool._acting_version}")
+    versions = [v for _, v in
+                trainer.log.history.get("learner/episode_param_version", [])]
+    check(bool(versions) and min(versions) >= 1,
+          f"{what}: episode param versions {versions[:8]}")
+    stats = trainer._pipeline_last_stats
+    check((stats is not None and stats["publishes"] >= 1) if pipelined
+          else stats is None, f"{what}: pipeline stats {stats}")
+    n_logged = _finite_logged(trainer)
+    check(n_logged > 0, f"{what}: no learner metrics logged")
+    _tree_consistent(trainer.replay_state, trainer.replay.capacity, what)
+    peak = torch.cuda.max_memory_allocated(dev)
+    counters = pool.ondevice_counters()
+    ms = statistics.median(rollout_ms)
+    log(f"{what}: {trainer.steps} learner steps in {wall:.3f} s of "
+        f"train(); dispatches {trainer.dispatches}; {trainer.ingested} "
+        f"transitions ingested; engine {counters}; param_version "
+        f"{trainer.param_version}, the engine acted on up to "
+        f"{pool._acting_version}; pipeline stats {stats}")
+    log(f"{what}: learner steps/s {trainer.steps_rate.rate:.3f}, env "
+        f"frames/s ingested {trainer.frames_rate.rate:.1f} (last 100 "
+        f"dispatches), {trainer.ingested / wall:.1f} over train(), the "
+        f"engine's {counters['frames'] / wall:.1f}; engine dispatch "
+        f"{ms:.3f} ms median of {len(rollout_ms)}; peak memory "
+        f"{peak / 2**30:.3f} GiB; {n_logged} logged metrics finite; gather "
+        f"launches {launches}")
+    out = dict(launches=launches, wall=wall,
+               steps_per_s=trainer.steps_rate.rate,
+               frames_over_train=trainer.ingested / wall,
+               ms_per_dispatch=ms, peak_bytes=peak)
+    del trainer, pool, engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def fused_train_phase(dev, gather) -> dict:
+    """``FusedApexTrainer.train`` at phase 5's geometry: 32 lanes x T 64
+    per macro step, 4 macro steps per dispatch, one learner step per
+    macro step once warm, for 64 learner steps."""
+    from apex_tpu_torch.ondevice.fused import FusedApexTrainer
+
+    what = "fused train"
+    torch.cuda.reset_peak_memory_stats(dev)
+    trainer = FusedApexTrainer(_ondevice_cfg("ApexCatch-v0"),
+                               rollout_len=ONDEVICE_T,
+                               steps_per_dispatch=ONDEVICE_N,
+                               train_per_step=1)     # on "cuda"
+    fused = trainer.fused
+    for name in gather.LAUNCH_COUNTS:                 # this path starts
+        gather.LAUNCH_COUNTS[name] = 0
+    t0 = time.perf_counter()
+    trainer.train(total_steps=FUSED_STEPS, max_seconds=LOOP_SECONDS,
+                  log_every=max(1, FUSED_STEPS // 4))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(gather.LAUNCH_COUNTS)             # this path ends
+    steps = trainer.steps
+    check(FUSED_STEPS <= steps < FUSED_STEPS + ONDEVICE_N,
+          f"{what}: {steps} learner steps in {wall:.1f} s")
+    check(launches == {"gather_rows": 0, "gather_stacks": steps},
+          f"{what}: gather launches {launches} in {steps} steps")
+    check(fused.prio_writebacks == fused.train_steps == steps,
+          f"{what}: {fused.prio_writebacks} write-backs, "
+          f"{fused.train_steps} fused train steps, {steps} steps")
+    check(trainer.ingested == fused.transitions
+          == trainer.replay_state.size,
+          f"{what}: {trainer.ingested} ingested, {fused.transitions} "
+          f"transitions, {trainer.replay_state.size} resident")
+    n_logged = _finite_logged(trainer)
+    check(n_logged > 0, f"{what}: no learner metrics logged")
+    _tree_consistent(trainer.replay_state, trainer.replay.capacity, what)
+    peak = torch.cuda.max_memory_allocated(dev)
+    frames = fused.frames
+    log(f"{what}: {steps} learner steps in {wall:.3f} s of train(): "
+        f"{fused.dispatches} dispatches of {ONDEVICE_N} macro steps "
+        f"({fused.macro_steps} in all, {wall / fused.dispatches * 1e3:.3f} "
+        f"ms per dispatch), {fused.chunks} chunks, {fused.transitions} "
+        f"transitions ingested, {fused.prio_writebacks} priority "
+        f"write-backs; learner steps/s {steps / wall:.3f}, env frames/s "
+        f"{frames / wall:.1f}; peak memory {peak / 2**30:.3f} GiB; "
+        f"{n_logged} logged metrics finite; gather launches {launches}")
+    del trainer, fused
+    torch.cuda.empty_cache()
+    return dict(launches=launches, wall=wall, steps_per_s=steps / wall,
+                frames_per_s=frames / wall, peak_bytes=peak)
+
+
+def fused_serial_phase(dev) -> None:
+    """``FusedApexTrainer`` at a small size on the card under deterministic
+    cuDNN: 2 dispatches of 3 macro steps against 6 of 1, bit-equal
+    weights, optimizer, replay, generators and rollout carry."""
+    import dataclasses
+
+    from apex_tpu_torch.ondevice.fused import FusedApexTrainer
+
+    def run(n, dispatches):
+        t = FusedApexTrainer(_ondevice_cfg("ApexCatchSmall-v0", small=True),
+                             rollout_len=8, steps_per_dispatch=n)
+        for _ in range(dispatches):
+            t.train_state, t.replay_state, _ = t.fused.dispatch(
+                t.train_state, t.replay_state, t._offsets)
+        return t
+
+    deterministic = (torch.backends.cudnn.deterministic,
+                     torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        a, b = run(3, 2), run(1, 6)
+        torch.cuda.synchronize()
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = deterministic
+    check(a.train_state.step == b.train_state.step > 0,
+          f"fused == serial: steps {a.train_state.step} vs "
+          f"{b.train_state.step}")
+    _learners_equal(a, b, "fused == serial")
+    ea, eb = a.fused.engine, b.fused.engine
+    check(torch.equal(ea.draws.generator.get_state(),
+                      eb.draws.generator.get_state())
+          and torch.equal(ea.ring, eb.ring),
+          "fused == serial: engine generators or rings differ")
+    for f in dataclasses.fields(ea.carry):
+        x, y = getattr(ea.carry, f.name), getattr(eb.carry, f.name)
+        for u, v in (zip(x, y) if isinstance(x, tuple) else [(x, y)]):
+            check(torch.equal(u, v), f"fused == serial: carry {f.name}")
+    log(f"fused == serial on the card (ApexCatchSmall-v0, 4 lanes x T 8, "
+        f"batch 32, deterministic cuDNN): 3 x 2 against 1 x 6 macro steps, "
+        f"{a.train_state.step} learner steps each, bit-equal weights, "
+        f"optimizer, replay, generators and rollout carry")
+
+
+def ondevice_phase(dev, gather, phase5: dict, serial5: dict) -> dict:
+    """Phase 10, in order: the envs, the engine against the CPU, the
+    engine alone, ``ApexTrainer.train`` over ``AnakinPool`` pipelined and
+    serial, ``FusedApexTrainer.train``, fused == serial.  Prints the
+    rates beside phase 5's."""
+    t0 = time.perf_counter()
+    device_env_phase(dev)
+    anakin_reference_phase(dev)
+    t1 = time.perf_counter()
+    engine = engine_phase(dev)
+    t2 = time.perf_counter()
+    anakin = anakin_train_phase(dev, gather, pipelined=True)
+    anakin_serial = anakin_train_phase(dev, gather, pipelined=False)
+    t3 = time.perf_counter()
+    fused = fused_train_phase(dev, gather)
+    fused_serial_phase(dev)
+    t4 = time.perf_counter()
+    log(f"ondevice: seconds per part: envs and reference {t1 - t0:.1f}, "
+        f"engine {t2 - t1:.1f}, AnakinPool train {t3 - t2:.1f}, fused "
+        f"{t4 - t3:.1f}")
+    log("ondevice vs phase 5 (4 actor processes x 8 envs): learner "
+        f"steps/s {anakin['steps_per_s']:.3f} / "
+        f"{anakin_serial['steps_per_s']:.3f} (AnakinPool pipelined / "
+        f"serial, last 100 steps), {fused['steps_per_s']:.3f} (fused, over "
+        f"train()) against {phase5['steps_per_s']:.3f} / "
+        f"{serial5['steps_per_s']:.3f} (phase 5 pipelined / serial, last "
+        f"100 steps); env frames/s ingested over train() "
+        f"{anakin['frames_over_train']:.1f} / "
+        f"{anakin_serial['frames_over_train']:.1f} / "
+        f"{fused['frames_per_s']:.1f} against "
+        f"{phase5['frames_over_train']:.1f} / "
+        f"{serial5['frames_over_train']:.1f}; engine "
+        f"alone {engine['ApexCatch-v0']['frames_per_s']:.1f} (Catch), "
+        f"{engine['ApexRally-v0']['frames_per_s']:.1f} (Rally) env frames/s, "
+        f"{engine['ApexCatch-v0']['ms_per_dispatch']:.3f} / "
+        f"{engine['ApexRally-v0']['ms_per_dispatch']:.3f} ms per dispatch")
+    return dict(anakin_train=anakin["launches"],
+                anakin_serial=anakin_serial["launches"],
+                fused_train=fused["launches"])
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR",
@@ -1507,13 +2020,14 @@ def main() -> int:
     r2d2_reference_phase(dev)
     r2d2 = r2d2_train_phase(dev, gather, args.profile)
     r2d2_single = r2d2_single_phase(dev, gather)
+    ondevice = ondevice_phase(dev, gather, loop, serial)
     paths = {"train": loop["launches"], "train_serial": serial["launches"],
              "consume": result["launches"],
              "full_width_pipelined": full["pipelined"]["launches"],
              "full_width_serial": full["serial"]["launches"],
              "checkpoint": saved["launches"], "dqn": dqn["launches"],
              "r2d2_train": r2d2["launches"],
-             "r2d2_single": r2d2_single["launches"]}
+             "r2d2_single": r2d2_single["launches"], **ondevice}
     # each kernel's main path is the trainers' train() that runs it:
     # ApexTrainer's for gather_stacks, R2D2ApexTrainer's for gather_rows;
     # the other paths stand beside

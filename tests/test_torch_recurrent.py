@@ -301,3 +301,27 @@ def test_train_state_from_flax_packs_the_lstm_moments():
     for name, p in model.state_dict().items():
         np.testing.assert_allclose(p.numpy(), want[name].numpy(), rtol=1e-5,
                                    atol=1e-7, err_msg=name)
+
+
+def test_fresh_lstm_input_kernels_are_bounded_as_flax_draws_them():
+    """A fresh port init of the full-width model (trunk 3136 features into
+    an LSTM of 128) draws its input kernels as flax's lecun_normal does:
+    a normal truncated at 2 std, so max |w| * sqrt(fan_in) stays under
+    2 / 0.87962566 = 2.2737 (checked <= 2.2742), and the std within 2% of
+    a fresh flax init's."""
+    flax_model = FlaxR2D2(num_actions=3, compute_dtype=jnp.float32)
+    params = flax_model.init(jax.random.key(0),
+                             jnp.zeros((1, 1, 84, 84, 1), jnp.uint8),
+                             flax_model.initial_state(1))
+    want = params_from_flax(jax.device_get(params))["lstm.weight_ih"]
+    fan_in = want.shape[1]
+    assert fan_in == 3136
+    model = RecurrentDuelingDQN(3, (84, 84, 1),
+                                generator=torch.Generator().manual_seed(0))
+    got = model.lstm.weight_ih.detach()
+    assert got.shape == want.shape
+    bound = 2.2742
+    assert want.abs().max().item() * fan_in ** 0.5 <= bound
+    assert got.abs().max().item() * fan_in ** 0.5 <= bound
+    np.testing.assert_allclose(got.std().item(), want.std().item(),
+                               rtol=0.02)
