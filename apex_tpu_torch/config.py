@@ -2,10 +2,10 @@
 
 A copy of the sections of :mod:`apex_tpu.config` the port's drivers read
 (the concurrent Ape-X trainer with its ingest pipeline, the single-process
-DQN driver, checkpointing, the R2D2 family), with the same defaults
-(reference hyperparameters: ``origin_repo/arguments.py:9-74``), and of
-:func:`~apex_tpu.config.small_test_config`.  Fields that only later slices
-read (mesh, comms, remote policy, AQL) are not copied yet.
+DQN driver, checkpointing, the R2D2 and AQL families), with the same
+defaults (reference hyperparameters: ``origin_repo/arguments.py:9-74``),
+and of :func:`~apex_tpu.config.small_test_config`.  Fields that only
+later slices read (mesh, comms, remote policy) are not copied yet.
 """
 
 from __future__ import annotations
@@ -123,6 +123,23 @@ class R2D2Config:
 
 
 @dataclass(frozen=True)
+class AQLConfig:
+    """Proposal-action Q-learning knobs (``apex_tpu/config.py:208-221``;
+    reference ``model.py:170``, ``AQL.py:41-42``)."""
+
+    propose_sample: int = 100
+    uniform_sample: int = 400
+    action_var: float = 0.25
+    proposal_lr: float = 1e-4
+    q_lr: float = 1e-4
+    entropy_coef: float = 0.01
+    # CosineAnnealingLR(T_max=max_step, eta_min=lr/1000) horizon of the
+    # single-process driver (AQL.py:18,48-49); the concurrent driver
+    # ignores it (AQL_dis constructs no schedulers)
+    cosine_lr_steps: int = 1_000_000
+
+
+@dataclass(frozen=True)
 class ApexConfig:
     """Top-level bundle of the sections this slice reads."""
 
@@ -130,6 +147,7 @@ class ApexConfig:
     replay: ReplayConfig = field(default_factory=ReplayConfig)
     learner: LearnerConfig = field(default_factory=LearnerConfig)
     actor: ActorConfig = field(default_factory=ActorConfig)
+    aql: AQLConfig = field(default_factory=AQLConfig)
     r2d2: R2D2Config = field(default_factory=R2D2Config)
 
     def replace(self, **sections: Any) -> "ApexConfig":

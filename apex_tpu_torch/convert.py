@@ -9,7 +9,9 @@ row permutation of the kernels after it is needed.  The ``lstm`` subtree
 of ``OptimizedLSTMCell`` (input kernels ``ii/if/ig/io``, hidden kernels
 and biases ``hi/hf/hg/ho``) packs into the port's
 ``weight_ih``/``weight_hh``/``bias_hh``, gates in the order i, f, g, o,
-and a zero ``bias_ih`` buffer.
+and a zero ``bias_ih`` buffer.  A NoisyNet layer (``w_mu``/``w_sigma``/
+``b_mu``/``b_sigma``) keeps flax's ``[in, out]`` layout in the port
+(:mod:`apex_tpu_torch.models.noisy`) and is copied as it is.
 
 A whole JAX checkpoint crosses with :func:`train_state_from_flax`,
 :func:`frame_pool_state_from_jax`, :func:`seq_pool_state_from_jax` and
@@ -27,7 +29,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from apex_tpu_torch.ops.losses import ClipRMSprop, RMSpropState
+from apex_tpu_torch.ops.losses import (AdamState, AQLOptimizer,
+                                       AQLOptState, ClipRMSprop,
+                                       RMSpropState, aql_param_labels)
 from apex_tpu_torch.replay.device import DeviceReplay, ReplayState
 from apex_tpu_torch.replay.frame_pool import FramePoolReplay, FramePoolState
 from apex_tpu_torch.replay.seq_pool import (SequenceFramePoolReplay,
@@ -57,6 +61,10 @@ def params_from_flax(params: dict) -> dict[str, torch.Tensor]:
         if name == "lstm":
             state.update(_lstm_from_flax(leaf))
             continue
+        if "w_mu" in leaf:                            # NoisyDense
+            state.update({f"{name}.{k}": torch.tensor(
+                np.asarray(v, np.float32)) for k, v in leaf.items()})
+            continue
         kernel = np.asarray(leaf["kernel"], np.float32)
         if kernel.ndim == 4:                          # HWIO -> OIHW
             kernel = kernel.transpose(3, 2, 0, 1)
@@ -75,19 +83,32 @@ def _load(module: nn.Module, tree: dict) -> None:
 
 
 def train_state_from_flax(raw: dict, model: nn.Module,
-                          optimizer: ClipRMSprop) -> TrainState:
+                          optimizer: ClipRMSprop | AQLOptimizer
+                          ) -> TrainState:
     """The port's train state from a JAX bundle's ``train_state`` tree:
     ``params`` loaded into ``model`` (in place, on its device), the target
-    into a copy of it, optax's clip + RMSprop state (``opt_state[1][0]``:
-    ``mu``/``nu`` trees, ``opt_state[1][1]["count"]``: the lr schedule's
-    count) onto :class:`RMSpropState` in ``model.parameters()`` order,
-    and the step.  A constant lr keeps no count in optax; the port's
-    count then equals the step, as both advance once per update."""
+    into a copy of it, the optimizer state and the step.
+
+    RMSprop: optax's clip + RMSprop state (``opt_state[1][0]``: ``mu``/
+    ``nu`` trees, ``opt_state[1][1]["count"]``: the lr schedule's count)
+    onto :class:`RMSpropState` in ``model.parameters()`` order.  A
+    constant lr keeps no count in optax; the port's count then equals the
+    step, as both advance once per update.
+
+    The AQL optimizer: ``optax.multi_transform``'s state
+    (``opt_state["inner_states"][group]["inner_state"]``, each a clip +
+    Adam chain whose masked ``mu``/``nu`` trees hold only the group's
+    leaves) onto one :class:`AdamState` per group, in the group's
+    ``named_parameters`` order, with Adam's own count."""
     _load(model, raw["params"])
     target = copy.deepcopy(model).requires_grad_(False)
     _load(target, raw["target_params"])
-    rms, schedule = raw["opt_state"]["1"]["0"], raw["opt_state"]["1"]["1"]
     step = int(raw["step"])
+    if isinstance(optimizer, AQLOptimizer):
+        return TrainState(params=model, target_params=target,
+                          opt_state=_aql_opt_state(raw["opt_state"], model),
+                          step=step)
+    rms, schedule = raw["opt_state"]["1"]["0"], raw["opt_state"]["1"]["1"]
     device = next(model.parameters()).device
     moments = {}
     for key in ("mu", "nu"):
@@ -103,6 +124,33 @@ def train_state_from_flax(raw: dict, model: nn.Module,
                       step=step)
 
 
+def _drop_masked(tree):
+    """A masked moment tree without the other group's leaves (optax's
+    ``MaskedNode``, which a saved bundle holds as an empty dict)."""
+    if not isinstance(tree, dict):
+        return tree
+    kept = {k: _drop_masked(v) for k, v in tree.items()}
+    return {k: v for k, v in kept.items() if not (isinstance(v, dict)
+                                                  and not v)}
+
+
+def _aql_opt_state(raw_opt: dict, model: nn.Module) -> AQLOptState:
+    labels = aql_param_labels(model)
+    device = next(model.parameters()).device
+    groups = {}
+    for group in ("q", "proposal"):
+        adam = raw_opt["inner_states"][group]["inner_state"]["1"]["0"]
+        names = [n for n, _ in model.named_parameters()
+                 if labels[n] == group]
+        moments = {key: params_from_flax(_drop_masked(adam[key]))
+                   for key in ("mu", "nu")}
+        groups[group] = AdamState(
+            count=int(adam["count"]),
+            **{key: [moments[key][n].to(device) for n in names]
+               for key in ("mu", "nu")})
+    return AQLOptState(**groups)
+
+
 def _check_capacity(raw: dict, capacity: int) -> None:
     saved = np.asarray(raw["sum_tree"]).shape[0] // 2
     if saved != capacity:
@@ -114,11 +162,13 @@ def frame_pool_state_from_jax(raw: dict, pool: FramePoolReplay,
     """The port's frame-pool state from a JAX bundle's ``replay_state``
     tree.  The JAX ring pads each row to whole (8, 128) tiles; the port's
     is unpadded, so each row keeps its first ``frame_dim`` elements.  The
-    AQL family's per-transition sidecars are not ported."""
-    if raw.get("extras"):
-        raise ValueError("frame-pool sidecars (extras) belong to the AQL "
-                         "family, which the port does not have yet")
+    sidecars (``extras``, the AQL family's candidate sets) are the pool's
+    ``extra_spec``."""
     _check_capacity(raw, pool.capacity)
+    saved = sorted((raw.get("extras") or {}).keys())
+    if saved != sorted(name for name, _ in pool.extra_spec):
+        raise ValueError(f"replay state sidecars {saved} != the pool's "
+                         f"{[name for name, _ in pool.extra_spec]}")
 
     def put(name):
         return torch.from_numpy(np.array(raw[name])).to(device)
@@ -132,7 +182,9 @@ def frame_pool_state_from_jax(raw: dict, pool: FramePoolReplay,
         next_ids=put("next_ids"), frame_epoch=put("frame_epoch"),
         sum_tree=put("sum_tree"), min_tree=put("min_tree"),
         pos=int(raw["pos"]), f_epoch=int(raw["f_epoch"]),
-        size=int(raw["size"]), max_priority=put("max_priority"))
+        size=int(raw["size"]), max_priority=put("max_priority"),
+        extras={name: torch.from_numpy(np.array(raw["extras"][name])).to(
+            device) for name, _ in pool.extra_spec})
 
 
 def seq_pool_state_from_jax(raw: dict, pool: SequenceFramePoolReplay,

@@ -2,7 +2,8 @@
 
 Counterpart of :mod:`apex_tpu.envs.registry` for the envs the port runs:
 ``ApexCartPole-v0``, its velocity-masked ``ApexCartPolePO-v0``, the
-``ApexCatch*`` family and ``ApexRally{,Small}-v0``.  :func:`make_env`
+Box-action ``ApexContinuousNav-v0``, the ``ApexCatch*`` family and
+``ApexRally{,Small}-v0``.  :func:`make_env`
 builds them un-stacked by default (``stack_frames=False``), the form the
 frame-pool actors consume: stacks are rebuilt on the device at sample
 time and in :class:`~apex_tpu_torch.replay.frame_chunks.FrameChunkBuilder`
@@ -19,8 +20,8 @@ from typing import Any
 import numpy as np
 
 from apex_tpu_torch.config import EnvConfig
-from apex_tpu_torch.envs.toy import (Box, CartPoleEnv, CatchEnv, RallyEnv,
-                                     VelocityMask)
+from apex_tpu_torch.envs.toy import (Box, CartPoleEnv, CatchEnv,
+                                     ContinuousNavEnv, RallyEnv, VelocityMask)
 
 
 class TimeLimit:
@@ -86,7 +87,9 @@ def make_env(env_id: str | None = None, cfg: EnvConfig | None = None,
     """The envs of ``apex_tpu.envs.registry`` that the port serves
     (``registry.py:77-101``): ``ApexCartPole-v0``, whose own limit is 500
     steps unless ``max_episode_steps`` is given, ``ApexCartPolePO-v0``,
-    the same with its velocities hidden, the Catch variants (Small 7x7
+    the same with its velocities hidden, ``ApexContinuousNav-v0`` (a 2-D
+    point driven to the origin, 30 steps unless ``max_episode_steps`` is
+    given), the Catch variants (Small 7x7
     at 42x42 with 3 balls, Medium 11x11 at 44x44 with 4 balls, full 21x21
     at 84x84 with 5 balls) and the Rally variants (Small: a 14-cell court
     at 42x42, 2 points, the agent's paddle half-height 2 and a 0.45-speed
@@ -101,6 +104,9 @@ def make_env(env_id: str | None = None, cfg: EnvConfig | None = None,
                if max_episode_steps is not None else CartPoleEnv())
         if env_id == "ApexCartPolePO-v0":
             env = VelocityMask(env)
+    elif env_id == "ApexContinuousNav-v0":
+        env = (ContinuousNavEnv(max_episode_steps=max_episode_steps)
+               if max_episode_steps is not None else ContinuousNavEnv())
     elif env_id.startswith(("ApexCatch", "ApexRally")):
         if env_id.startswith("ApexRally"):
             env = (RallyEnv(grid=14, pixels=42, points=2, agent_half=2,
@@ -119,7 +125,8 @@ def make_env(env_id: str | None = None, cfg: EnvConfig | None = None,
     else:
         raise ValueError(f"env {env_id!r} is not ported yet; the port "
                          f"serves ApexCartPole-v0, ApexCartPolePO-v0, "
-                         f"the ApexCatch* family and ApexRally{{,Small}}-v0")
+                         f"ApexContinuousNav-v0, the ApexCatch* family "
+                         f"and ApexRally{{,Small}}-v0")
     if seed is not None:
         env.reset(seed=seed)
     return env

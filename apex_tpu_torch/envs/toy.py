@@ -2,6 +2,7 @@
 
 Counterparts of :class:`apex_tpu.envs.toy.CartPoleEnv` (``toy.py:23-77``),
 :class:`apex_tpu.envs.toy.VelocityMask` (``toy.py:78-93``),
+:class:`apex_tpu.envs.toy.ContinuousNavEnv` (``toy.py:96-130``),
 :class:`apex_tpu.envs.toy.RallyEnv` (``toy.py:133-270``) and
 :class:`apex_tpu.envs.toy.CatchEnv` (``toy.py:272-324``) with the same
 ``reset``/``step`` semantics.  The port cannot import gymnasium (the GPU
@@ -121,6 +122,42 @@ class VelocityMask:
 
     def close(self) -> None:
         self.env.close()
+
+
+class ContinuousNavEnv:
+    """Continuous-action navigation: drive a point to the origin, the
+    CI-scale Box-action task of the AQL family.  The observation is the
+    position in ``[-2, 2]^dim`` (f64 inside, f32 out); the action a
+    velocity in ``[-1, 1]^dim`` scaled by ``step_scale``; the reward
+    ``-|position|_2``; truncation after ``max_episode_steps``."""
+
+    def __init__(self, dim: int = 2, max_episode_steps: int = 30,
+                 step_scale: float = 0.2):
+        self.dim, self._max_steps, self._scale = dim, max_episode_steps, \
+            step_scale
+        self.observation_space = Box(-2.0, 2.0, (dim,), np.dtype(np.float32))
+        self.action_space = Box(-1.0, 1.0, (dim,), np.dtype(np.float32))
+        self._pos = np.zeros(dim, np.float64)
+        self._steps = 0
+        self.np_random: np.random.Generator | None = None
+
+    def reset(self, *, seed: int | None = None, options=None):
+        if seed is not None or self.np_random is None:
+            self.np_random = np.random.default_rng(seed)
+        self._pos = self.np_random.uniform(-2.0, 2.0, size=self.dim)
+        self._steps = 0
+        return self._pos.astype(np.float32), {}
+
+    def step(self, action):
+        a = np.clip(np.asarray(action, np.float64), -1.0, 1.0)
+        self._pos = np.clip(self._pos + self._scale * a, -2.0, 2.0)
+        self._steps += 1
+        reward = -float(np.linalg.norm(self._pos))
+        truncated = self._steps >= self._max_steps
+        return self._pos.astype(np.float32), reward, False, truncated, {}
+
+    def close(self) -> None:
+        pass
 
 
 class RallyEnv:

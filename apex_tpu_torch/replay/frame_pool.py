@@ -21,14 +21,17 @@ staleness redirect; the semantics here are the same).  Differences:
   next_obs together, as the two halves of one ``[2B, H, W, S*c]`` tensor,
   which the batch also carries as ``obs_pair`` (the loss's online pass
   reads it whole).
-* The per-transition sidecars (``extra_spec``) of the AQL family are not
-  ported yet.
+* Per-transition sidecars (``extra_spec``): f32 ``[C, *shape]`` tensors
+  written in place by ``add`` at the transition's cells, from the chunk's
+  ``extras`` dict, and returned by ``sample`` as top-level batch keys,
+  gathered with plain indexing (outside the kernel).  The AQL family
+  stores its candidate set ``a_mu [T, a_dim]`` there.
 """
 
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 
@@ -61,6 +64,7 @@ class FramePoolState:
     f_epoch: int                # frames ever written, wrapped to int32
     size: int                   # live transition count
     max_priority: torch.Tensor  # f32 scalar
+    extras: dict = field(default_factory=dict)  # f32[C, ...] sidecars
 
 
 @dataclass(frozen=True)
@@ -79,6 +83,8 @@ class FramePoolReplay(PERMethods):
     frame_dtype: str = "uint8"
     alpha: float = 0.6
     eps: float = 1e-6
+    # per-transition f32 sidecars: ((name, trailing_shape), ...)
+    extra_spec: tuple[tuple[str, tuple[int, ...]], ...] = ()
 
     def __post_init__(self):
         tree_ops._check_capacity(self.capacity)
@@ -87,6 +93,12 @@ class FramePoolReplay(PERMethods):
             raise ValueError(
                 f"frame_capacity={self.f_capacity} cannot hold one "
                 f"{self.frame_stack}-frame stack")
+        reserved = {"obs", "action", "reward", "next_obs", "discount",
+                    "obs_pair"}
+        for name, _ in self.extra_spec:
+            if name in reserved:
+                raise ValueError(f"extra_spec name {name!r} collides with "
+                                 f"a builtin batch key")
 
     @property
     def f_capacity(self) -> int:
@@ -109,6 +121,7 @@ class FramePoolReplay(PERMethods):
         frame_bytes = self.f_capacity * self.frame_dim * itemsize
         # action/reward/discount/frame_epoch i32|f32 + 2 id tables + 2 trees
         per_trans = 4 * 4 + 2 * 4 * s
+        per_trans += sum(4 * math.prod(shape) for _, shape in self.extra_spec)
         tree_bytes = 2 * (2 * c) * 4
         return frame_bytes + c * per_trans + tree_bytes
 
@@ -135,6 +148,7 @@ class FramePoolReplay(PERMethods):
             min_tree=tree_ops.init_min_tree(c, dev),
             pos=0, f_epoch=0, size=0,
             max_priority=torch.tensor(1.0, device=dev),
+            extras={name: zeros(c, *shape) for name, shape in self.extra_spec},
         )
 
     # -- mutation (in place) -----------------------------------------------
@@ -145,7 +159,8 @@ class FramePoolReplay(PERMethods):
 
         ``chunk`` keys: ``frames`` u8[Kf, D], ``n_frames``, ``n_trans``,
         ``action``/``reward``/``discount`` [K], ``obs_ref``/``next_ref``
-        i32[K, S] (chunk-relative) and optional ``epoch_off`` i32[K]; numpy
+        i32[K, S] (chunk-relative), optional ``epoch_off`` i32[K] and,
+        with an ``extra_spec``, ``extras`` {name: [K, *shape]}; numpy
         arrays or tensors.  ``priorities`` f32[K].
 
         Pad rows (>= n_frames / n_trans, repeats of the last real row) land
@@ -182,6 +197,12 @@ class FramePoolReplay(PERMethods):
         if epoch_off is not None and tuple(epoch_off.shape) != (k,):
             raise ValueError(
                 f"chunk epoch_off shape {tuple(epoch_off.shape)} != ({k},)")
+        for name, shape in self.extra_spec:
+            got = tuple(chunk["extras"][name].shape)
+            if got != (k,) + tuple(shape):
+                raise ValueError(
+                    f"chunk extras[{name!r}] shape {got} != "
+                    f"{(k,) + tuple(shape)}")
         if valid is not None and not bool(valid):
             return state
         n_frames, n_trans = int(chunk["n_frames"]), int(chunk["n_trans"])
@@ -207,6 +228,9 @@ class FramePoolReplay(PERMethods):
         state.obs_ids[tidx] = obs_ids.int()
         state.next_ids[tidx] = next_ids.int()
         state.frame_epoch[tidx] = epoch
+        for name, _ in self.extra_spec:
+            state.extras[name][tidx] = put(chunk["extras"][name],
+                                           torch.float32)
         state.pos = (state.pos + n_trans) % c
         state.f_epoch = _wrap_i32(state.f_epoch + n_frames)
         state.size = min(state.size + n_trans, c)
@@ -242,6 +266,7 @@ class FramePoolReplay(PERMethods):
             next_obs=stacks[b:],
             discount=state.discount[idx],
             obs_pair=stacks,
+            **{name: state.extras[name][idx] for name, _ in self.extra_spec},
         )
         weights = self.is_weights(state, idx, beta)
         return batch, weights, idx

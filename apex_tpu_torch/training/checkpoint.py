@@ -4,8 +4,8 @@ Counterpart of :mod:`apex_tpu.training.checkpoint` (``checkpoint.py:37-297``).
 A checkpoint is the full learner, so a restored learner continues
 bit-exactly:
 
-    train_state: online and target weights, the RMSprop moments and
-        count, the step
+    train_state: online and target weights, the optimizer's moments and
+        counts (RMSprop's, or each AQL group's Adam), the step
     replay_state: every field of the replay state (device tensors and the
         host cursors)
     generator: the state of the learner's torch.Generator
@@ -101,6 +101,27 @@ def _impose(target, raw, where: str):
     return type(target)(raw)
 
 
+def _state_tree(obj):
+    """A dataclass (an optimizer state) as nested dicts, its tensors and
+    lists of tensors by reference."""
+    if dataclasses.is_dataclass(obj):
+        return {f.name: _state_tree(getattr(obj, f.name))
+                for f in dataclasses.fields(obj)}
+    return obj
+
+
+def _set_numbers(obj, tree: dict) -> None:
+    """Write the ints and floats of ``tree`` (restored by
+    :func:`restore_bundle`) back into the dataclass ``obj``; its tensors
+    were overwritten in place already."""
+    for f in dataclasses.fields(obj):
+        value = getattr(obj, f.name)
+        if dataclasses.is_dataclass(value):
+            _set_numbers(value, tree[f.name])
+        elif isinstance(value, (int, float)):
+            setattr(obj, f.name, tree[f.name])
+
+
 def restore_bundle(path: str, target: dict,
                    check=None) -> tuple[dict, dict]:
     """Impose the saved state onto ``target``, a bundle of the same
@@ -160,13 +181,12 @@ class CheckpointableTrainer:
     def _bundle(self) -> dict:
         """The learner's state, by reference (tensors are the live ones)."""
         ts = self.train_state
-        opt = ts.opt_state
         rs = self.replay_state
         return dict(
             train_state=dict(
                 params=ts.params.state_dict(),
                 target_params=ts.target_params.state_dict(),
-                opt_state=dict(count=opt.count, mu=opt.mu, nu=opt.nu),
+                opt_state=_state_tree(ts.opt_state),
                 step=ts.step),
             replay_state={f.name: getattr(rs, f.name)
                           for f in dataclasses.fields(rs)},
@@ -200,7 +220,7 @@ class CheckpointableTrainer:
                     f"{self.checkpointer.directory!r}")
         bundle, meta = restore_bundle(path, self._bundle())
         saved_ts = bundle["train_state"]
-        self.train_state.opt_state.count = saved_ts["opt_state"]["count"]
+        _set_numbers(self.train_state.opt_state, saved_ts["opt_state"])
         self.train_state.step = saved_ts["step"]
         for name, value in bundle["replay_state"].items():
             setattr(self.replay_state, name, value)
@@ -220,8 +240,8 @@ def config_from_meta(meta_cfg: dict):
     """The ApexConfig of :func:`config_to_meta` output; keys the port's
     config does not have (a JAX config's mesh or comms fields) are
     dropped."""
-    from apex_tpu_torch.config import (ActorConfig, ApexConfig, EnvConfig,
-                                       LearnerConfig, R2D2Config,
+    from apex_tpu_torch.config import (ActorConfig, ApexConfig, AQLConfig,
+                                       EnvConfig, LearnerConfig, R2D2Config,
                                        ReplayConfig)
 
     def build(cls, d):
@@ -233,6 +253,7 @@ def config_from_meta(meta_cfg: dict):
                       replay=build(ReplayConfig, meta_cfg["replay"]),
                       learner=build(LearnerConfig, meta_cfg["learner"]),
                       actor=build(ActorConfig, meta_cfg["actor"]),
+                      aql=build(AQLConfig, meta_cfg.get("aql", {})),
                       r2d2=build(R2D2Config, meta_cfg.get("r2d2", {})))
 
 
@@ -260,7 +281,8 @@ def run_policy_episodes(env, policy, generator: torch.Generator,
     trainers' ``evaluate`` and :func:`evaluate_checkpoint`: episode ``i``
     resets with seed ``seed_base + i``; ``policy(obs, epsilon, generator)
     -> (actions, q)`` (:func:`~apex_tpu_torch.models.dueling.
-    make_policy_fn`) acts on a batch of one on the generator's device.
+    make_policy_fn`) acts on a batch of one on the generator's device;
+    integer actions step the env as an ``int``, a Box point as numpy.
     ``reset_hook()``, when given, runs before each episode (a recurrent
     policy zeroes its carry there)."""
     rewards = []
@@ -273,7 +295,10 @@ def run_policy_episodes(env, policy, generator: torch.Generator,
             actions, _ = policy(
                 torch.as_tensor(np.asarray(obs)[None]).to(generator.device),
                 epsilon, generator)
-            obs, r, term, trunc, _ = env.step(int(actions[0]))
+            action = actions[0]
+            obs, r, term, trunc, _ = env.step(
+                action.cpu().numpy() if action.is_floating_point()
+                else int(action))
             total += float(r)
             done = term or trunc
             steps += 1
@@ -296,10 +321,10 @@ def evaluate_checkpoint(path: str, episodes: int = 10, epsilon: float = 0.0,
 
     dev = resolve_device(device)
     raw, meta = load_raw(path)
-    if "action_dim" in meta["model_spec"]:
-        raise NotImplementedError("AQL checkpoints: the AQL family is not "
-                                  "ported yet (ROADMAP item 6)")
     cfg = config_from_meta(meta["config"])
+    if "action_dim" in meta["model_spec"]:         # the AQL family's spec
+        return _evaluate_aql(raw, meta, cfg, episodes, epsilon, max_steps,
+                             seed, dev)
     # a spec with lstm_features is the recurrent family's
     recurrent = "lstm_features" in meta["model_spec"]
     model = (RecurrentDuelingDQN if recurrent else DuelingDQN)(
@@ -313,5 +338,26 @@ def evaluate_checkpoint(path: str, episodes: int = 10, epsilon: float = 0.0,
     rewards = run_policy_episodes(
         env, policy, torch.Generator(device=dev).manual_seed(seed), episodes,
         epsilon, max_steps, seed_base=seed, reset_hook=reset)
+    env.close()
+    return float(np.mean(rewards))
+
+
+def _evaluate_aql(raw: dict, meta: dict, cfg, episodes: int, epsilon: float,
+                  max_steps: int, seed: int, dev: torch.device) -> float:
+    """:func:`evaluate_checkpoint` of an AQL bundle: mu-only NoisyNet heads
+    (``apex_tpu/training/checkpoint.py:256-266``)."""
+    from apex_tpu_torch.envs.registry import make_eval_env
+    from apex_tpu_torch.models.aql import AQLDraws, AQLNetwork
+    from apex_tpu_torch.training.aql import aql_eval_policy
+
+    model = AQLNetwork(**spec_from_meta(meta["model_spec"]),
+                       generator=torch.Generator().manual_seed(seed))
+    model.load_state_dict(raw["train_state"]["params"])
+    model.to(dev)
+    env = make_eval_env(cfg.env.env_id, cfg.env, seed=seed)
+    generator = torch.Generator(device=dev).manual_seed(seed)
+    rewards = run_policy_episodes(
+        env, aql_eval_policy(model, AQLDraws(generator)), generator, episodes,
+        epsilon, max_steps, seed_base=seed)
     env.close()
     return float(np.mean(rewards))

@@ -58,6 +58,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from apex_tpu_torch import resolve_device
+
 #: payload keys that identify a self-contained frame chunk
 #: (replay/frame_chunks.py), the only schema merge_chunk_messages takes
 FRAME_CHUNK_KEYS = frozenset((
@@ -84,8 +86,10 @@ def merge_chunk_messages(msgs: list[dict]) -> dict:
     transitions separately), ``obs_ref``/``next_ref`` are rebased by each
     chunk's cumulative real frame offset, and ``epoch_off`` carries that
     offset per transition, so the pool stamps the epochs a sequential
-    ingest would.  The tail pads by repeating the last real row,
-    priorities included.  Output shapes are ``[m*K]`` / ``[m*Kf, D]``.
+    ingest would.  Per-transition sidecars (``extras``, the AQL family's
+    candidate sets) are concatenated as the transition fields are.  The
+    tail pads by repeating the last real row, priorities included.
+    Output shapes are ``[m*K]`` / ``[m*Kf, D]``.
     """
     if len(msgs) == 1:
         return msgs[0]
@@ -136,6 +140,11 @@ def merge_chunk_messages(msgs: list[dict]) -> dict:
         epoch_off=cat([np.full(nt, c) for nt, c in zip(n_tr, cum_fr)],
                       np.int32),
     )
+    if "extras" in payloads[0]:
+        payload["extras"] = {
+            name: cat([p["extras"][name][:nt]
+                       for p, nt in zip(payloads, n_tr)], np.float32)
+            for name in payloads[0]["extras"]}
     prios = cat([np.asarray(msg["priorities"])[:nt]
                  for msg, nt in zip(msgs, n_tr)], np.float32)
     return {"payload": payload, "priorities": prios, "n_trans": tot_tr}
@@ -184,14 +193,16 @@ def _pow2_floor(n: int) -> int:
 class IngestPipeline:
     """The background staging stage (module docstring).  Construction
     starts nothing; drive it with :meth:`start` / :meth:`stop`.  One
-    producer (the staging thread), one consumer (the trainer loop)."""
+    producer (the staging thread), one consumer (the trainer loop).
+    ``device`` defaults to the card and raises without one unless
+    ``"cpu"`` is asked for."""
 
-    def __init__(self, pool, *, device: torch.device | str = "cpu",
+    def __init__(self, pool, *, device: torch.device | str = "cuda",
                  depth: int = 2, scan_steps: int = 1, merge_max: int = 8,
                  state_fn=None, capacity: int | None = None,
                  frame_capacity: int | None = None):
         self.pool = pool
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.depth = max(1, int(depth))
         # the side stream the staging copies run on; None on the CPU
         self._stream = None
@@ -424,6 +435,10 @@ class IngestPipeline:
             for name, x in payload.items():
                 if name in HOST_SCALARS:
                     payload[name] = int(x)
+                elif isinstance(x, dict):      # sidecars: {name: [K, ...]}
+                    payload[name] = inner = dict(x)
+                    arrays += [(inner, k, np.asarray(v))
+                               for k, v in inner.items()]
                 else:
                     arrays.append((payload, name, np.asarray(x)))
         arrays += [(prios, i, p) for i, p in enumerate(prios)]

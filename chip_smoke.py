@@ -83,18 +83,42 @@ Phases, each of which exits nonzero on failure before any result line:
    ms per engine dispatch and peak memory beside phase 5's.  Last, a
    small ``FusedApexTrainer`` on the card under deterministic cuDNN:
    2 dispatches of 3 macro steps bit-equal to 6 of 1.
+11. aql      -- the AQL family at its published widths (embed 128,
+   proposal 128, Q feature 64-64, action embed 128-64, NoisyNet 64-1;
+   100 proposal + 400 uniform candidates, batch 512, capacity 2^19, bf16
+   compute).  11a: one AQL learner core on the card and on the CPU (f32,
+   TF32 off, the same weights, messages, uniforms and draws), stacked
+   continuous and frame-pool pixels: sampled batches and ``best_idx``
+   equal, losses and leaves within rtol 1e-4, weights within rtol 1e-4
+   plus 5% of one Adam step, tree roots equal their leaves.  11b/11c:
+   ``AQLApexTrainer.train`` with 4 actor processes x 8 envs over the shm
+   ring, pipelined, warm-up 4096, 50 learner steps, on
+   ``ApexContinuousNav-v0`` (T = 500, a 2.1 GB stacked replay) and on
+   pixel ``ApexCatch-v0`` (frame stack 4, T = 103, the frame pool with
+   the ``a_mu`` sidecar): the steps, ``gather_stacks`` launches equal to
+   the pixel path's learner steps and none on the continuous path, the
+   candidate sets resident, finite metrics, the sum tree, publishes, no
+   process or segment left; prints learner steps/s, env frames/s, the
+   actors' phase fractions, a synchronised fused step's ms and peak
+   memory.  11d: ``AQLTrainer`` on ``ApexContinuousNav-v0``, warm-up 512
+   (cut from 50 000) then 1024 frames, an update every 4: frames/s and
+   updates/s.  11e: a pixel ``AQLApexTrainer`` at capacity 2^16 (to
+   bound the file) consumes 11c's messages, saves, restores bit-equal
+   (both Adam groups, the sidecar), takes 4 more steps bit-equal, and
+   ``evaluate_checkpoint`` scores the file with mu-only heads.
 
 Then it prints the card's name and power limit, one ``{"kernels": ...}``
 line (``launches`` counts each kernel's main path: phase 5's pipelined
 ``train()`` for ``gather_stacks``, phase 9's for ``gather_rows``;
 ``launches_by_path`` adds the serial drain, phase 4's consume path,
-phases 6-9 and phase 10's ``anakin_train``, ``anakin_serial`` and
-``fused_train``) and, last,
+phases 6-9, phase 10's ``anakin_train``, ``anakin_serial`` and
+``fused_train`` and phase 11's ``aql_continuous``, ``aql_pixel``,
+``aql_single`` and ``aql_checkpoint``) and, last,
 ``{"ok": true, "device": {...}}``.  It needs one card
 and exits nonzero without one.  ``--profile DIR`` also traces a few more
-fused steps of phases 4 and 9 with ``torch.profiler``, writes device time
-by op and by kernel to DIR and prints the gather and copy kernels' device
-time.
+fused steps of phases 4, 9 and 11 (continuous and pixels) with
+``torch.profiler``, writes device time by op and by kernel to DIR and
+prints the gather and copy kernels' device time.
 ``--parent DIR`` also builds the ``gather_rows`` kernel of an earlier
 checkout unpacked at DIR and times it beside this one.
 """
@@ -640,11 +664,11 @@ def slice_phase(dev, gather, profile_dir: str | None = None) -> dict:
 
 # -- phase 5: train() with actor processes ---------------------------------
 
-def _finite_logged(trainer) -> int:
-    """Check every learner metric train() logged is finite; returns how
-    many values were checked."""
+def _finite_logged(trainer, extra: tuple = ()) -> int:
+    """Check every learner metric train() logged is finite (the DQN
+    metrics and ``extra``); returns how many values were checked."""
     n = 0
-    for name in ("loss", "grad_norm", "q_mean", "td_mean"):
+    for name in ("loss", "grad_norm", "q_mean", "td_mean") + extra:
         values = [v for _, v in trainer.log.history.get(f"learner/{name}",
                                                         [])]
         check(all(math.isfinite(v) for v in values),
@@ -874,27 +898,38 @@ def _full_width_cfg(pipelined: bool, capacity: int = CAPACITY):
         actor=ActorConfig(send_interval=chunk))
 
 
-def _learners_equal(a, b, what: str) -> None:
-    """Params, target, optimizer state, replay state and the generator
-    of two trainers, bit for bit."""
+def _same(x, y) -> bool:
+    """Bit-equality of two learner states: tensors, containers of them,
+    optimizer-state dataclasses and host numbers."""
     import dataclasses
 
+    if isinstance(x, torch.Tensor):
+        return torch.equal(x, y)
+    if isinstance(x, dict):
+        return x.keys() == y.keys() and all(_same(x[k], y[k]) for k in x)
+    if isinstance(x, (list, tuple)):
+        return len(x) == len(y) and all(map(_same, x, y))
+    if dataclasses.is_dataclass(x):
+        return all(_same(getattr(x, f.name), getattr(y, f.name))
+                   for f in dataclasses.fields(x))
+    return x == y
+
+
+def _learners_equal(a, b, what: str) -> None:
+    """Params, target, optimizer state (RMSprop's, or both AQL Adam
+    groups'), replay state (sidecars included) and the generator of two
+    trainers, bit for bit."""
     ta, tb = a.train_state, b.train_state
     for mod_a, mod_b in ((ta.params, tb.params),
                          (ta.target_params, tb.target_params)):
         for (name, x), y in zip(mod_a.state_dict().items(),
                                 mod_b.state_dict().values()):
             check(torch.equal(x, y), f"{what}: weights {name} differ")
-    check((ta.step, ta.opt_state.count) == (tb.step, tb.opt_state.count),
-          f"{what}: step counts differ")
-    for x, y in zip(ta.opt_state.mu + ta.opt_state.nu,
-                    tb.opt_state.mu + tb.opt_state.nu):
-        check(torch.equal(x, y), f"{what}: optimizer moments differ")
-    for f in dataclasses.fields(a.replay_state):
-        x, y = getattr(a.replay_state, f.name), getattr(b.replay_state,
-                                                        f.name)
-        same = torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
-        check(same, f"{what}: replay field {f.name} differs")
+    check(ta.step == tb.step, f"{what}: step counts differ")
+    check(_same(ta.opt_state, tb.opt_state),
+          f"{what}: optimizer states differ")
+    check(_same(a.replay_state, b.replay_state),
+          f"{what}: replay states differ")
     check(torch.equal(a.generator.get_state(), b.generator.get_state()),
           f"{what}: generator states differ")
 
@@ -1976,6 +2011,554 @@ def ondevice_phase(dev, gather, phase5: dict, serial5: dict) -> dict:
                 fused_train=fused["launches"])
 
 
+# -- phase 11: the AQL family -----------------------------------------------
+
+AQL_PROPOSE, AQL_UNIFORM = 100, 400     # the published candidate split
+AQL_T = AQL_PROPOSE + AQL_UNIFORM       # candidates per state on Box spaces
+AQL_PIXEL_T = AQL_PROPOSE + 3           # ApexCatch: uniform clamped to 3
+AQL_STEPS = 50               # learner steps of each AQLApexTrainer.train
+AQL_SECONDS = 300.0          # their wall-clock bound
+AQL_TIMED = 10               # synchronised fused steps timed after train()
+AQL_FRAMES = 1024            # AQLTrainer frames past its warm-up
+AQL_SINGLE_WARMUP = 512      # AQLTrainer's warm-up (the default is 50 000)
+AQL_CHECKPOINT_CAPACITY = 2 ** 16   # the checkpoint's ring, 0.9 GiB on disk
+
+
+def _aql_cfg(env_id: str, capacity: int = CAPACITY,
+             warmup: int = TRAIN_WARMUP):
+    """Phase 11's configuration: AQL's published widths (embed 128,
+    proposal 128, Q feature 64-64, action embed 128-64, NoisyNet 64-1),
+    100 proposal + 400 uniform candidates, batch 512, capacity 2^19, bf16
+    compute, 4 actor processes x 8 envs, 64-transition chunks."""
+    from apex_tpu_torch.config import (ActorConfig, ApexConfig, AQLConfig,
+                                       EnvConfig, LearnerConfig,
+                                       ReplayConfig)
+    return ApexConfig(
+        env=EnvConfig(env_id=env_id, seed=SEED),
+        replay=ReplayConfig(capacity=capacity, warmup=warmup),
+        learner=LearnerConfig(batch_size=BATCH, target_update_interval=500,
+                              ingest_chunk=512),
+        actor=ActorConfig(n_actors=N_ACTORS, n_envs_per_actor=ENVS_PER_ACTOR,
+                          send_interval=SEND_INTERVAL, timing_interval=32),
+        aql=AQLConfig(propose_sample=AQL_PROPOSE,
+                      uniform_sample=AQL_UNIFORM))
+
+
+class _HostDraws:
+    """AQL draws made by a CPU generator and moved to ``device``: the card
+    and the CPU learner of the reference see the same numbers."""
+
+    def __init__(self, seed: int, device):
+        from apex_tpu_torch.models.aql import AQLDraws
+        self.inner = AQLDraws(torch.Generator().manual_seed(seed))
+        self.device = torch.device(device)
+        self.generator = self.inner.generator
+
+    def _to(self, tree):
+        if isinstance(tree, dict):
+            return {k: self._to(v) for k, v in tree.items()}
+        if isinstance(tree, tuple):
+            return tuple(self._to(v) for v in tree)
+        return tree.to(self.device)
+
+    def proposal(self, model, b):
+        return self._to(self.inner.proposal(model, b))
+
+    def noise(self, model):
+        return self._to(self.inner.noise(model))
+
+    def explore(self, b, t):
+        return self._to(self.inner.explore(b, t))
+
+
+def _aql_reference_messages(pixels: bool, n: int, t: int, rng) -> list:
+    """``n`` AQL messages of 16 transitions: frame chunks with an ``a_mu``
+    sidecar (42x42 frames, stack 4, discrete candidates) or stacked
+    continuous transitions (obs 2, A = 2)."""
+    from apex_tpu_torch.replay.frame_chunks import (FrameChunkBuilder,
+                                                    drain_builder_chunks)
+    from apex_tpu_torch.training.aql import AQLTransitionBuilder
+
+    msgs: list = []
+    if pixels:
+        b = FrameChunkBuilder(1, 0.99, 4, (42, 42, 1), chunk_transitions=16,
+                              extra_shapes={"a_mu": (t, 1)})
+        while len(msgs) < n:
+            b.begin_episode(rng.integers(0, 255, (42, 42, 1), np.uint8))
+            length = int(rng.integers(5, 30))
+            for i in range(length):
+                b.add_step(int(rng.integers(0, t)), float(rng.normal()),
+                           rng.normal(size=t).astype(np.float32),
+                           rng.integers(0, 255, (42, 42, 1), np.uint8),
+                           i == length - 1, False,
+                           extras={"a_mu": rng.integers(0, 3, (t, 1)).astype(
+                               np.float32)})
+            msgs.extend(drain_builder_chunks(b))
+        return msgs[:n]
+    b = AQLTransitionBuilder(0.99)
+    for i in range(16 * n + 1):
+        b.add_step(rng.normal(size=2).astype(np.float32),
+                   int(rng.integers(0, t)), float(rng.normal()),
+                   rng.normal(size=2).astype(np.float32),
+                   rng.uniform(-1, 1, (t, 2)).astype(np.float32),
+                   rng.normal(size=t).astype(np.float32), False,
+                   i % 30 == 29)
+    while len(b) >= 16:
+        batch, prios = b.drain(16)
+        msgs.append({"payload": batch, "priorities": prios, "n_trans": 16})
+    return msgs[:n]
+
+
+def _adam_moments(model, opt_state, mu_before: dict) -> dict:
+    """Per parameter name of ``model``: its group's Adam ``mu`` and ``nu``
+    after the last step and ``mu`` before it, on the host."""
+    from apex_tpu_torch.ops.losses import aql_param_labels
+
+    labels = aql_param_labels(model)
+    out = {}
+    for group in ("q", "proposal"):
+        state = getattr(opt_state, group)
+        names = [n for n in labels if labels[n] == group]
+        for n, mu, nu, mu0 in zip(names, state.mu, state.nu,
+                                  mu_before[group]):
+            out[n] = (mu.cpu(), nu.cpu(), mu0.cpu())
+    return out
+
+
+def _log_weight_gaps(what: str, card: dict, cpu: dict, model, count: int,
+                     lr: float, top: int = 4, b1: float = 0.9,
+                     b2: float = 0.999, eps: float = 1e-8) -> None:
+    """Log the ``top`` weights furthest outside rtol 1e-4 between the card
+    and the CPU, with each side's last clipped gradient (recovered from
+    Adam's first moment), bias-corrected moments and last update, so the
+    weights' atol rests on a reading of where the gap comes from."""
+    names = [n for n, _ in model.named_parameters()]
+    rows = []
+    for n, pg, pc in zip(names, card["params"], cpu["params"]):
+        excess = ((pg - pc).abs() - 1e-4 * pc.abs()).flatten()
+        vals, idx = excess.topk(min(top, excess.numel()))
+        rows += [(v, n, j) for v, j in zip(vals.tolist(), idx.tolist())]
+    bc1, bc2 = 1.0 - b1 ** count, 1.0 - b2 ** count
+    for _, n, j in sorted(rows, reverse=True)[:top]:
+        i = names.index(n)
+        pg, pc = (d["params"][i].flatten()[j].item() for d in (card, cpu))
+        sides = []
+        for side, d in (("card", card), ("cpu", cpu)):
+            mu, nu, mu0 = (x.flatten()[j].item() for x in d["moments"][n])
+            grad = (mu - b1 * mu0) / (1.0 - b1)
+            mu_hat, root_nu = mu / bc1, math.sqrt(nu / bc2)
+            sides.append(f"{side} |g| {abs(grad):.3e} mu_hat {mu_hat:.3e} "
+                         f"sqrt(nu_hat) {root_nu:.3e} last update "
+                         f"{-lr * mu_hat / (root_nu + eps):.3e}")
+        log(f"{what}: weight gap {n}[{j}] |card - cpu| {abs(pg - pc):.3e} "
+            f"(rtol part {1e-4 * abs(pc):.3e}, eps {eps:g}): "
+            + "; ".join(sides))
+
+
+def aql_reference_phase(dev) -> None:
+    """11a: one AQL learner core on the card and on the CPU (f32, TF32
+    off) from the same weights, messages, sample uniforms and NoisyNet
+    draws, stacked continuous (T = 8 + 16, A = 2) and frame-pool pixels
+    (42x42x4, T = 5 + 3 discrete): the sampled batch bit-exact, the Q
+    loss, priorities and ``best_idx`` of one pass and the losses and tree
+    leaves over 4 fused steps within rtol 1e-4, the weights within rtol
+    1e-4 plus 5% of one Adam step, and each tree's root the sum of its
+    leaves."""
+    import copy
+
+    from apex_tpu_torch.models.aql import AQLNetwork
+    from apex_tpu_torch.ops.losses import aql_q_loss, make_aql_optimizer
+    from apex_tpu_torch.replay.device import DeviceReplay
+    from apex_tpu_torch.replay.frame_pool import FramePoolReplay
+    from apex_tpu_torch.training.aql import AQLCore
+    from apex_tpu_torch.training.state import TrainState
+
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b = 16
+    try:
+        for pixels in (False, True):
+            what = f"aql reference ({'pixels' if pixels else 'continuous'})"
+            rng = np.random.default_rng(SEED)
+            if pixels:
+                spec = dict(action_dim=3, discrete=True, propose_sample=5,
+                            uniform_sample=3, obs_shape=(42, 42, 4),
+                            obs_is_image=True, scale_uint8=True)
+                t = 8
+                replay = FramePoolReplay(capacity=64, frame_shape=(42, 42, 1),
+                                         frame_stack=4,
+                                         extra_spec=(("a_mu", (t, 1)),))
+            else:
+                spec = dict(action_dim=2, propose_sample=8,
+                            uniform_sample=16, obs_shape=(2,))
+                t = 24
+                replay = DeviceReplay(capacity=64)
+            msgs = _aql_reference_messages(pixels, 6, t, rng)
+            offsets = [rng.random(b, dtype=np.float32) for _ in msgs]
+            model = AQLNetwork(**spec,
+                               generator=torch.Generator().manual_seed(SEED))
+            opt = make_aql_optimizer(q_lr=1e-3, proposal_lr=1e-3)
+            out = {}
+            for name, device in (("cpu", torch.device("cpu")), ("cuda", dev)):
+                draws = _HostDraws(SEED, device)
+                core = AQLCore(replay=replay, optimizer=opt, batch_size=b,
+                               target_update_interval=2, draws=draws)
+                online = copy.deepcopy(model).to(device)
+                ts = TrainState(params=online,
+                                target_params=copy.deepcopy(online)
+                                .requires_grad_(False),
+                                opt_state=opt.init(online), step=0)
+                if pixels:
+                    rs = replay.init(device)
+                else:
+                    example = {k: v[0] for k, v in msgs[0]["payload"].items()}
+                    rs = replay.init(example, device)
+                for msg in msgs[:2]:
+                    core.ingest(rs, msg["payload"], msg["priorities"])
+                batch, weights, _ = replay.sample(
+                    rs, torch.from_numpy(offsets[0]).to(device), 0.4)
+                _, aux = aql_q_loss(online, ts.target_params, batch, weights,
+                                    draws.noise(online), draws.noise(online))
+                losses, prios, roots = [], [], []
+                for msg, u in zip(msgs[2:], offsets[1:]):
+                    mu_before = {g: [x.clone() for x in
+                                     getattr(ts.opt_state, g).mu]
+                                 for g in ("q", "proposal")}
+                    ts, rs, m = core.fused_step(
+                        ts, rs, msg["payload"], msg["priorities"],
+                        torch.from_numpy(u).to(device), 0.4)
+                    losses.append([m["loss"].item(),
+                                   m["loss_proposal"].item()])
+                    leaves = rs.sum_tree[replay.capacity:].double()
+                    prios.append(leaves.float().cpu().clone())
+                    roots.append((rs.sum_tree[1].item(),
+                                  leaves.sum().item()))
+                out[name] = dict(
+                    batch={k: v.cpu() for k, v in batch.items()},
+                    aux=[x.detach().cpu() for x in aux], losses=losses,
+                    prios=torch.stack(prios).numpy(), roots=roots,
+                    params=[p.detach().cpu() for p in online.parameters()],
+                    moments=_adam_moments(online, ts.opt_state, mu_before))
+            cpu, card = out["cpu"], out["cuda"]
+            for key in cpu["batch"]:
+                check(torch.equal(card["batch"][key], cpu["batch"][key]),
+                      f"{what}: sampled {key} differs between card and CPU")
+            check(torch.equal(card["aux"][4], cpu["aux"][4]),
+                  f"{what}: best_idx differs")
+            for i, label in ((0, "q loss"), (2, "priorities")):
+                np.testing.assert_allclose(card["aux"][i].numpy(),
+                                           cpu["aux"][i].numpy(), rtol=1e-4,
+                                           atol=1e-6,
+                                           err_msg=f"{what}: {label}")
+            np.testing.assert_allclose(card["losses"], cpu["losses"],
+                                       rtol=1e-4, err_msg=f"{what}: losses")
+            np.testing.assert_allclose(card["prios"], cpu["prios"],
+                                       rtol=1e-4, err_msg=f"{what}: leaves")
+            # Adam scales each step to about lr whatever the gradient's
+            # size, so an element whose gradient is round-off (|g| near
+            # eps) can move by a fraction of lr on one side only: the
+            # weights get rtol 1e-4 plus 5% of one 1e-3 step
+            _log_weight_gaps(what, card, cpu, model, count=len(msgs) - 2,
+                             lr=1e-3)
+            for pg, pc in zip(card["params"], cpu["params"]):
+                np.testing.assert_allclose(pg.numpy(), pc.numpy(), rtol=1e-4,
+                                           atol=5e-5,
+                                           err_msg=f"{what}: weights")
+            for root, total in card["roots"]:
+                check(abs(root - total) <= 1e-5 * total,
+                      f"{what}: sum-tree root {root} != leaves {total}")
+            err = max(abs(a - c) for ra, rc in zip(card["losses"],
+                                                   cpu["losses"])
+                      for a, c in zip(ra, rc))
+            log(f"{what}: card vs CPU AQL core agree: sampled batch "
+                f"bit-exact, best_idx equal, {len(msgs) - 2} fused steps' "
+                f"losses (Q, proposal) {card['losses']}, max abs "
+                f"difference {err:.3g}; tree roots equal their leaves")
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+
+
+def aql_train_phase(dev, gather, env_id: str,
+                    profile_dir: str | None = None) -> dict:
+    """11b/11c: ``AQLApexTrainer.train`` at AQL's published widths with 4
+    actor processes x 8 envs over the shm ring and the default pipeline,
+    for 50 learner steps after a 4096-transition warm-up.  Continuous
+    (``ApexContinuousNav-v0``, T = 500, stacked replay) or pixels
+    (``ApexCatch-v0``, frame stack 4, T = 103, frame pool with the ``a_mu``
+    sidecar: one ``gather_stacks`` launch per learner step).  Also keeps a
+    few of the messages it ingested for 11e.  With ``profile_dir``, a few
+    more fused steps on the last kept message run under the profiler."""
+    from apex_tpu_torch.native.ring import SEGMENT_PREFIX
+    from apex_tpu_torch.replay.frame_pool import FramePoolReplay
+    from apex_tpu_torch.training.aql import AQLApexTrainer
+
+    pixels = env_id.startswith("ApexCatch")
+    what = f"aql train ({'pixels' if pixels else 'continuous'})"
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    trainer = AQLApexTrainer(_aql_cfg(env_id),
+                             publish_min_seconds=0.5)        # on "cuda"
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    pool, core, replay = trainer.pool, trainer.core, trainer.replay
+    t_cand = trainer.model.total_sample
+    check(t_cand == (AQL_PIXEL_T if pixels else AQL_T)
+          and isinstance(replay, FramePoolReplay) == pixels,
+          f"{what}: {t_cand} candidates, replay {type(replay).__name__}")
+    hbm = (replay.hbm_bytes() if pixels else sum(
+        x.numel() * x.element_size()
+        for x in trainer.replay_state.storage.values()))
+    log(f"{what}: {N_ACTORS} actor processes x {ENVS_PER_ACTOR} envs, "
+        f"{pool.threads} torch threads each, chunks of {SEND_INTERVAL} "
+        f"transitions, {t_cand} candidates per state, warm-up "
+        f"{TRAIN_WARMUP}, batch {BATCH}, capacity {replay.capacity}, "
+        f"{hbm / 1e9:.3f} GB of replay storage, built in {build_s:.3f} s")
+    kept: list = []
+    ingest = core.ingest
+
+    def keeping_ingest(rs, payload, prios):
+        if len(kept) < 16 and prios.shape[0] == SEND_INTERVAL:  # unmerged
+            kept.append({"payload": payload, "priorities": prios,
+                         "n_trans": SEND_INTERVAL})
+        return ingest(rs, payload, prios)
+
+    object.__setattr__(core, "ingest", keeping_ingest)
+    for name in gather.LAUNCH_COUNTS:                 # main path starts
+        gather.LAUNCH_COUNTS[name] = 0
+    t0 = time.perf_counter()
+    trainer.train(total_steps=AQL_STEPS, max_seconds=AQL_SECONDS,
+                  log_every=10)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(gather.LAUNCH_COUNTS)             # main path ends
+    object.__setattr__(core, "ingest", ingest)
+    steps, dispatches = trainer.steps, dict(trainer.dispatches)
+    rate, ingested = trainer.steps_rate.rate, trainer.ingested
+    frames_rate = trainer.frames_rate.rate
+
+    check(steps == AQL_STEPS == trainer.train_state.step,
+          f"{what}: {steps} learner steps in {wall:.1f} s, want "
+          f"{AQL_STEPS} within {AQL_SECONDS} s")
+    want = {"gather_rows": 0, "gather_stacks": steps if pixels else 0}
+    check(launches == want,
+          f"{what}: gather launches {launches} in {steps} steps, want "
+          f"{want}")
+    check(pool.chunk_plane == "shm",
+          f"{what}: chunks rode {pool.chunk_plane}, not the shm ring")
+    check(trainer.param_version >= 2,
+          f"{what}: {trainer.param_version} param publishes")
+    versions = [v for _, v in
+                trainer.log.history.get("learner/episode_param_version", [])]
+    check(bool(versions) and min(versions) > 0,
+          f"{what}: episode stats' param versions {versions[:8]}")
+    stats = trainer._pipeline_last_stats
+    check(stats is not None and stats["slots"] > 0
+          and stats["publishes"] >= 1
+          and (stats["merged_chunks"] >= 2 if pixels
+               else stats["merged_slots"] == 0),
+          f"{what}: pipeline stats {stats}")
+    n_logged = _finite_logged(trainer, ("loss_proposal",))
+    check(n_logged > 0, f"{what}: no learner metrics logged")
+    rs, c = trainer.replay_state, replay.capacity
+    leaves = rs.sum_tree[c:c + rs.size]
+    root, total = rs.sum_tree[1].item(), leaves.double().sum().item()
+    check(bool(torch.isfinite(leaves).all()) and bool((leaves > 0).all()),
+          f"{what}: non-finite or non-positive priorities")
+    check(abs(root - total) <= 1e-5 * total,
+          f"{what}: sum-tree root {root} != sum of leaves {total}")
+    a_mu = (rs.extras["a_mu"] if pixels else rs.storage["a_mu"])[:rs.size]
+    check(bool(torch.isfinite(a_mu).all())
+          and bool((a_mu.abs().sum(dim=(1, 2)) > 0).all()),
+          f"{what}: a_mu rows not all written")
+    if pixels:
+        check(bool((a_mu[:, :3, 0].sort(dim=1).values
+                    == torch.arange(3.0, device=dev)).all()),
+              f"{what}: uniform candidates are not the 3 distinct actions")
+    else:
+        check(bool((a_mu[:, :AQL_UNIFORM].abs() <= 1.0).all()),
+              f"{what}: uniform candidates outside the action box")
+    alive = [p.pid for p in pool.procs if p.is_alive()]
+    check(not alive, f"{what}: actor processes {alive} outlived train()")
+    left = [f for f in os.listdir("/dev/shm")
+            if f.startswith(f"{SEGMENT_PREFIX}-{os.getpid()}-")]
+    check(not left, f"{what}: segments left in /dev/shm: {left}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    plane = trainer.actor_plane()
+    check(plane is not None, f"{what}: no actor reported its timing")
+    check(bool(kept), f"{what}: no full message kept")
+
+    step_ms = []
+    last = kept[-1]
+    for _ in range(AQL_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_state, trainer.replay_state, metrics = core.fused_step(
+            trainer.train_state, trainer.replay_state, last["payload"],
+            last["priorities"], trainer._offsets(), trainer._beta())
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    check(all(math.isfinite(float(v)) for v in metrics.values()),
+          f"{what}: non-finite metrics in the timed steps: {metrics}")
+    ms = statistics.median(step_ms[2:])
+    if profile_dir:
+        profile_steps(trainer, [last] * PROFILE_STEPS, profile_dir,
+                      f"chip_smoke_profile_aql_"
+                      f"{'pixels' if pixels else 'continuous'}.txt")
+    score = trainer.evaluate(episodes=1, max_steps=500)
+    check(math.isfinite(score), f"{what}: eval score {score}")
+    log(f"{what}: {steps} learner steps in {wall:.3f} s of train(); "
+        f"dispatches {dispatches}; {ingested} transitions ingested; "
+        f"param_version {trainer.param_version}; {len(versions)} episodes "
+        f"drained, param versions {min(versions)}..{max(versions)}; "
+        f"pipeline stats {stats}")
+    log(f"{what}: learner steps/s {rate:.3f} (last {min(100, steps)} "
+        f"steps; {rate * BATCH * 3 * t_cand:.0f} candidate rows scored/s); "
+        f"env frames/s ingested {frames_rate:.1f} (last 100 dispatches), "
+        f"{ingested / wall:.1f} over train(); actors report "
+        f"{plane['frames_per_sec_sum']:.1f} frames/s in all; actor phases "
+        f"policy_wait {plane['policy_wait_frac']:.4f} env_step "
+        f"{plane['env_step_frac']:.4f} drain {plane['drain_frac']:.4f}")
+    log(f"{what}: fused step at full width, synchronised, median of "
+        f"{AQL_TIMED - 2} after train(): {ms:.3f} ms (all "
+        f"{[round(x, 3) for x in step_ms]}); peak memory "
+        f"{peak / 2**30:.3f} GiB; {n_logged} logged metrics finite; gather "
+        f"launches {launches}; greedy mu-only eval {score} (1 episode); no "
+        f"actor alive, no segment left")
+    del trainer, core, replay, rs, leaves, a_mu
+    torch.cuda.empty_cache()
+    return dict(launches=launches, wall=wall, steps_per_s=rate,
+                frames_per_s=frames_rate, frames_over_train=ingested / wall,
+                ms_per_fused_step=ms, peak_bytes=peak, msgs=kept)
+
+
+def aql_single_phase(dev, gather) -> dict:
+    """11d: ``AQLTrainer`` (the single-process driver, acting on the card)
+    on ``ApexContinuousNav-v0`` at phase 11's widths: a 512-transition
+    warm-up (cut from 50 000), then 1024 frames with an update every 4."""
+    from apex_tpu_torch.training.aql import AQLTrainer
+
+    what = "aql single"
+    cfg = _aql_cfg("ApexContinuousNav-v0", warmup=AQL_SINGLE_WARMUP)
+    trainer = AQLTrainer(cfg, train_every=4)                  # on "cuda"
+    for key in gather.LAUNCH_COUNTS:                  # this path starts
+        gather.LAUNCH_COUNTS[key] = 0
+    frames = AQL_SINGLE_WARMUP + AQL_FRAMES
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.train(total_frames=frames, log_every=10)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(gather.LAUNCH_COUNTS)             # this path ends
+    steps = trainer.steps_rate.total
+    check(trainer.frames_rate.total == frames and steps > 0
+          and trainer.train_state.step == steps,
+          f"{what}: {trainer.frames_rate.total} frames, {steps} updates")
+    check(launches == {"gather_rows": 0, "gather_stacks": 0},
+          f"{what}: gather launches {launches} (the stacked replay)")
+    n_logged = _finite_logged(trainer, ("loss_proposal",))
+    check(n_logged > 0, f"{what}: no learner metrics logged")
+    score = trainer.evaluate(episodes=1, max_steps=50)
+    check(math.isfinite(score), f"{what}: eval score {score}")
+    log(f"{what}: {frames} frames ({AQL_SINGLE_WARMUP} warm-up), "
+        f"{trainer.ingested} transitions ingested and {steps} updates "
+        f"(batch {BATCH}, T = {trainer.model.total_sample}) in {wall:.3f} "
+        f"s: {frames / wall:.1f} frames/s, {steps / wall:.2f} updates/s "
+        f"over the run; cosine lr at step {steps}: "
+        f"{trainer.core.optimizer.q.learning_rate(steps):.6g}; {n_logged} "
+        f"logged metrics finite; greedy eval {score} (1 episode)")
+    del trainer
+    torch.cuda.empty_cache()
+    return dict(launches=launches, frames_per_s=frames / wall,
+                steps_per_s=steps / wall)
+
+
+def aql_checkpoint_phase(dev, gather, msgs: list) -> dict:
+    """11e: an ``AQLApexTrainer`` on pixels at capacity 2^16 (a 2^17-row
+    ring, to bound the file) consumes the messages 11c ingested, saves,
+    restores into a fresh trainer bit-equal (both Adam groups, the ``a_mu``
+    sidecar, the generator), both take 4 more steps bit-equal, and
+    ``evaluate_checkpoint`` scores the file with mu-only heads."""
+    import tempfile
+
+    from apex_tpu_torch.training.aql import AQLApexTrainer
+    from apex_tpu_torch.training.checkpoint import evaluate_checkpoint
+
+    what = "aql checkpoint"
+    warm = 8
+    check(len(msgs) >= warm + 8, f"{what}: {len(msgs)} messages kept")
+    cfg = _aql_cfg("ApexCatch-v0", capacity=AQL_CHECKPOINT_CAPACITY,
+                   warmup=warm * SEND_INTERVAL)
+    for key in gather.LAUNCH_COUNTS:                  # this path starts
+        gather.LAUNCH_COUNTS[key] = 0
+    with tempfile.TemporaryDirectory(prefix="apex-aql-ckpt-") as tmp:
+        t1 = AQLApexTrainer(cfg, pool=ListPool([]), device=dev,
+                            checkpoint_dir=tmp)
+        for msg in msgs[:warm + 4]:
+            t1.consume([msg])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = t1.save_checkpoint()
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        t2 = AQLApexTrainer(cfg, pool=ListPool([]), device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t2.restore(path)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        check(t2.steps == t1.steps == 4,
+              f"{what}: steps {t1.steps} saved, {t2.steps} restored")
+        _learners_equal(t1, t2, f"{what}: restored")
+        for trainer in (t1, t2):
+            for msg in msgs[warm + 4:warm + 8]:
+                trainer.consume([msg])
+        _learners_equal(t1, t2, f"{what}: 4 steps after restore")
+        score = evaluate_checkpoint(path, episodes=1, max_steps=500,
+                                    device=dev)
+        check(math.isfinite(score), f"{what}: eval score {score}")
+    launches = dict(gather.LAUNCH_COUNTS)             # this path ends
+    check(launches == {"gather_rows": 0, "gather_stacks": 12},
+          f"{what}: gather launches {launches}")
+    log(f"{what}: capacity {AQL_CHECKPOINT_CAPACITY}, ring "
+        f"{t1.replay.f_capacity} rows + a_mu sidecar "
+        f"{tuple(t1.replay_state.extras['a_mu'].shape)}; file {size} "
+        f"bytes; save {save_s:.3f} s, restore {restore_s:.3f} s; restored "
+        f"and saved trainers bit-equal over 4 more steps; "
+        f"evaluate_checkpoint score {score} (1 episode, mu-only); "
+        f"directory removed")
+    del t1, t2
+    torch.cuda.empty_cache()
+    return dict(launches=launches, bytes=size)
+
+
+def aql_phase(dev, gather, profile_dir: str | None = None) -> dict:
+    """Phase 11, in order: 11a the card-vs-CPU reference, 11b continuous
+    and 11c pixel ``AQLApexTrainer.train`` (each profiled after its run
+    with ``profile_dir``), 11d ``AQLTrainer``, 11e the checkpoint.
+    Returns the launch counts by path."""
+    t0 = time.perf_counter()
+    aql_reference_phase(dev)
+    t1 = time.perf_counter()
+    cont = aql_train_phase(dev, gather, "ApexContinuousNav-v0", profile_dir)
+    t2 = time.perf_counter()
+    pix = aql_train_phase(dev, gather, "ApexCatch-v0", profile_dir)
+    t3 = time.perf_counter()
+    single = aql_single_phase(dev, gather)
+    t4 = time.perf_counter()
+    saved = aql_checkpoint_phase(dev, gather, pix.pop("msgs"))
+    cont.pop("msgs")
+    t5 = time.perf_counter()
+    log(f"aql: seconds per part: reference {t1 - t0:.1f}, continuous train "
+        f"{t2 - t1:.1f}, pixel train {t3 - t2:.1f}, single {t4 - t3:.1f}, "
+        f"checkpoint {t5 - t4:.1f}")
+    return dict(aql_continuous=cont["launches"], aql_pixel=pix["launches"],
+                aql_single=single["launches"],
+                aql_checkpoint=saved["launches"])
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR",
@@ -2021,13 +2604,14 @@ def main() -> int:
     r2d2 = r2d2_train_phase(dev, gather, args.profile)
     r2d2_single = r2d2_single_phase(dev, gather)
     ondevice = ondevice_phase(dev, gather, loop, serial)
+    aql = aql_phase(dev, gather, args.profile)
     paths = {"train": loop["launches"], "train_serial": serial["launches"],
              "consume": result["launches"],
              "full_width_pipelined": full["pipelined"]["launches"],
              "full_width_serial": full["serial"]["launches"],
              "checkpoint": saved["launches"], "dqn": dqn["launches"],
              "r2d2_train": r2d2["launches"],
-             "r2d2_single": r2d2_single["launches"], **ondevice}
+             "r2d2_single": r2d2_single["launches"], **ondevice, **aql}
     # each kernel's main path is the trainers' train() that runs it:
     # ApexTrainer's for gather_stacks, R2D2ApexTrainer's for gather_rows;
     # the other paths stand beside

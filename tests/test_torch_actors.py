@@ -214,13 +214,15 @@ def test_double_buffer_on_and_off_are_bit_identical_per_slot():
 
 def _run_loop(target, args, stat_queue, stop, want):
     """Run a worker loop on a thread, reading its depth-1 stat queue
-    slowly (so the worker drops stats), until ``want(stats)`` holds."""
+    slowly (so the worker drops stats), until ``want(stats)`` holds.
+    A drop needs two episode ends between reads, so the pause between
+    reads outlasts a few CartPole episodes on a loaded host."""
     t = threading.Thread(target=target, args=args, daemon=True)
     t.start()
     stats = []
     deadline = time.monotonic() + 30.0
     while time.monotonic() < deadline and not want(stats):
-        time.sleep(0.02)
+        time.sleep(0.25)
         try:
             stats.append(stat_queue.get(timeout=0.2))
         except queue.Empty:

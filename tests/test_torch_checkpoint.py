@@ -6,8 +6,11 @@ restored DQN learner continues bit-exactly, saves come every
 ``save_interval`` and are pruned to ``keep``, evaluation from a file needs
 no trainer, the config meta round-trips, a crash mid-save leaves the
 previous checkpoint restorable, and the loader refuses pickled objects.
-Then an ``ApexTrainer`` round trip and its saves from ``train()``.  JAX
-bundles carried across are ``tests/test_torch_convert.py``.
+Then an ``ApexTrainer`` round trip and its saves from ``train()``, and an
+``AQLApexTrainer`` on pixels (two Adam groups, the frame pool's ``a_mu``
+sidecar) whose round trip continues bit-exactly and whose file
+``evaluate_checkpoint`` scores.  JAX bundles carried across are
+``tests/test_torch_convert.py``.
 """
 
 import copy
@@ -266,3 +269,57 @@ def test_apex_trainer_saves_every_save_interval_in_train(tmp_path):
     _, meta = ckpt.load_raw(str(tmp_path / "ckpt_8.pt"))
     assert meta["learner_epoch"] == 1 and meta["param_version"] >= 1
     assert meta["model_spec"]["obs_shape"] == [42, 42, 4]
+
+
+def _aql_pixel_messages(n, t):
+    """Pixel AQL chunk messages: Catch-sized frames with an ``a_mu``
+    sidecar of ``t`` discrete candidates."""
+    rng = np.random.default_rng(1)
+    b = FrameChunkBuilder(1, 0.99, 4, (42, 42, 1), chunk_transitions=K,
+                          extra_shapes={"a_mu": (t, 1)})
+    msgs = []
+    while len(msgs) < n:
+        b.begin_episode(rng.integers(0, 255, (42, 42, 1)).astype(np.uint8))
+        length = int(rng.integers(5, 40))
+        for i in range(length):
+            b.add_step(int(rng.integers(0, t)), float(rng.normal()),
+                       rng.normal(size=t).astype(np.float32),
+                       rng.integers(0, 255, (42, 42, 1)).astype(np.uint8),
+                       i == length - 1, False,
+                       extras={"a_mu": rng.integers(0, 3, (t, 1)).astype(
+                           np.float32)})
+        msgs.extend(drain_builder_chunks(b))
+    return msgs[:n]
+
+
+def test_aql_apex_trainer_roundtrip_continues_bit_exactly(tmp_path):
+    from apex_tpu_torch.training.aql import AQLApexTrainer
+    from tests.test_torch_aql import assert_aql_learners_equal
+
+    cfg = _apex_cfg()
+    cfg = cfg.replace(aql=dataclasses.replace(cfg.aql, propose_sample=5,
+                                              uniform_sample=8))
+    msgs = _aql_pixel_messages(12, 5 + 3)           # uniform clamped to 3
+    t1 = AQLApexTrainer(cfg, pool=StubPool(), device="cpu",
+                        checkpoint_dir=str(tmp_path))
+    for msg in copy.deepcopy(msgs[:8]):
+        t1.consume([msg])
+    assert t1.steps > 0
+    path = t1.save_checkpoint()
+    _, meta = ckpt.load_raw(path)
+    assert meta["model_spec"]["discrete"] is True
+    assert meta["config"]["aql"]["propose_sample"] == 5
+    t2 = AQLApexTrainer(cfg, pool=StubPool(), device="cpu")
+    t2.restore(path)
+    assert (t2.steps, t2.ingested) == (t1.steps, t1.ingested)
+    assert bool(t2.replay_state.extras["a_mu"].abs().sum() > 0)
+    assert_aql_learners_equal(t1, t2)
+    for tr in (t1, t2):
+        for msg in copy.deepcopy(msgs[8:]):
+            tr.consume([msg])
+    assert t1.steps == t2.steps
+    assert_aql_learners_equal(t1, t2)
+    # evaluation from the file alone: mu-only heads on the stacked env
+    score = ckpt.evaluate_checkpoint(path, episodes=1, max_steps=200,
+                                     device="cpu")
+    assert np.isfinite(score) and -5.0 <= score <= 5.0

@@ -1,6 +1,7 @@
 """JAX checkpoints carried into the port (:mod:`apex_tpu_torch.convert`).
 
-A JAX ``ApexTrainer`` and a JAX ``DQNTrainer`` train briefly and save;
+A JAX ``ApexTrainer``, a JAX ``DQNTrainer`` and a JAX ``AQLApexTrainer``
+(pixel and continuous) train briefly and save;
 their bundles, read with ``apex_tpu``'s ``load_raw`` (msgpack, which the
 port does not read), are converted into the port's state and compared
 field by field: replay fields equal (the frame ring without the JAX
@@ -18,6 +19,7 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from apex_tpu.config import ActorConfig as JaxActorConfig
@@ -36,6 +38,7 @@ from apex_tpu_torch.convert import (device_replay_state_from_jax,
                                     frame_pool_state_from_jax,
                                     train_state_from_flax)
 from apex_tpu_torch.models.dueling import DuelingDQN
+from apex_tpu_torch.ops.losses import aql_param_labels
 from apex_tpu_torch.replay.frame_chunks import (FrameChunkBuilder,
                                                 drain_builder_chunks)
 from apex_tpu_torch.training.apex import ApexTrainer
@@ -126,6 +129,9 @@ def test_jax_apex_bundle_converts_into_the_port_state(tmp_path, monkeypatch):
         [:, :pt.replay.frame_dim])
     for f in dataclasses.fields(rs):
         got, own = getattr(rs, f.name), getattr(pt.replay_state, f.name)
+        if isinstance(got, dict):          # sidecars: none in a DQN pool
+            assert got == own == dict(jrs.get(f.name) or {}), f.name
+            continue
         if not isinstance(got, torch.Tensor):
             assert got == int(jrs[f.name]) == own, f.name
             continue
@@ -201,3 +207,134 @@ def test_jax_dqn_bundle_converts_into_the_port_replay(tmp_path):
         raw["train_state"], pt.model, pt.core.optimizer)
     metrics = pt.train_step(0.5)
     assert np.isfinite(float(metrics["loss"]))
+
+
+@pytest.mark.parametrize("env_id", ["ApexCatchSmall-v0",
+                                    "ApexContinuousNav-v0"],
+                         ids=["pixels-frame-pool", "continuous-stacked"])
+def test_jax_aql_apex_bundle_converts_into_the_port_state(tmp_path,
+                                                          monkeypatch,
+                                                          env_id):
+    """A JAX ``AQLApexTrainer`` trained on a message stream and saved: its
+    NoisyNet params, the two Adam groups' moments and counts, the replay
+    with its ``a_mu`` candidate sets (the frame pool's sidecar, or the
+    stacked replay's item) carried across equal, and the converted state
+    drives the port's AQL learner."""
+    from apex_tpu.replay.frame_chunks import FrameChunkBuilder as JaxBuilder
+    from apex_tpu.training import aql as jax_aql
+    from apex_tpu_torch.training.aql import AQLApexTrainer
+
+    monkeypatch.setenv("APEX_OBS_SPANS", "0")
+    pixels = env_id.startswith("ApexCatch")
+    out = []
+    for cls in ((JaxApexConfig, JaxEnvConfig, JaxReplayConfig,
+                 JaxLearnerConfig, JaxActorConfig),
+                (ApexConfig, EnvConfig, ReplayConfig, LearnerConfig,
+                 ActorConfig)):
+        apex, env, replay, learner, actor = cls
+        cfg = apex(env=env(env_id=env_id, seed=5),
+                   replay=replay(capacity=256, warmup=32),
+                   learner=learner(batch_size=8, compute_dtype="float32",
+                                   target_update_interval=3,
+                                   ingest_pipeline=False, n_steps=1),
+                   actor=actor(send_interval=K))
+        out.append(cfg.replace(aql=dataclasses.replace(
+            cfg.aql, propose_sample=6, uniform_sample=10)))
+    jcfg, cfg = out
+    t = 6 + (3 if pixels else 10)
+    rng = np.random.default_rng(2)
+    msgs = []
+    if pixels:
+        builder = JaxBuilder(1, 0.99, 4, (42, 42, 1), chunk_transitions=K,
+                             extra_shapes={"a_mu": (t, 1)})
+        while len(msgs) < 8:
+            builder.begin_episode(rng.integers(0, 255, (42, 42, 1))
+                                  .astype(np.uint8))
+            length = int(rng.integers(4, 20))
+            for i in range(length):
+                builder.add_step(
+                    int(rng.integers(0, t)), float(rng.normal()),
+                    rng.normal(size=t).astype(np.float32),
+                    rng.integers(0, 255, (42, 42, 1)).astype(np.uint8),
+                    i == length - 1, False,
+                    extras={"a_mu": rng.integers(0, 3, (t, 1)).astype(
+                        np.float32)})
+            from apex_tpu.actors.pool import drain_builder_chunks as drain
+            msgs.extend(drain(builder))
+    else:
+        builder = jax_aql.AQLTransitionBuilder(0.99)
+        for i in range(8 * K + 1):
+            builder.add_step(rng.normal(size=2).astype(np.float32),
+                             int(rng.integers(0, t)), float(rng.normal()),
+                             rng.normal(size=2).astype(np.float32),
+                             rng.uniform(-1, 1, (t, 2)).astype(np.float32),
+                             rng.normal(size=t).astype(np.float32),
+                             False, i % 30 == 29)
+        while len(builder) >= K:
+            batch, prios = builder.drain(K)
+            msgs.append({"payload": batch, "priorities": prios,
+                         "n_trans": K})
+    jt = jax_aql.AQLApexTrainer(jcfg, pool=StubPool(copy.deepcopy(msgs[:8])),
+                                publish_min_seconds=0.0,
+                                checkpoint_dir=str(tmp_path))
+    jt.respawn_workers = False
+    jt.train(total_steps=4, max_seconds=120, log_every=10 ** 9)
+    raw, meta = jax_checkpoint.load_raw(jt.save_checkpoint())
+    assert meta["steps"] == 4
+
+    pt = AQLApexTrainer(cfg, pool=StubPool(), device="cpu")
+    assert pt.model_spec["action_dim"] == meta["model_spec"]["action_dim"]
+    ts = train_state_from_flax(raw["train_state"], pt.model,
+                               pt.core.optimizer)
+    assert ts.step == 4
+    jopt = raw["train_state"]["opt_state"]["inner_states"]
+    for group in ("q", "proposal"):
+        state = getattr(ts.opt_state, group)
+        adam = jopt[group]["inner_state"]["1"]["0"]
+        assert state.count == int(adam["count"]) == 4
+        labels = [n for n, lbl in aql_param_labels(pt.model).items()
+                  if lbl == group]
+        for key in ("mu", "nu"):
+            tree = adam[key]["params"]
+            for name, value in zip(labels, getattr(state, key), strict=True):
+                layer, leaf = name.split(".")
+                want = np.asarray(tree[layer][{"weight": "kernel"}.get(
+                    leaf, leaf)])
+                np.testing.assert_array_equal(
+                    value.numpy(), want.T if leaf == "weight" else want,
+                    name)
+    jparams = jax.device_get(jt.train_state.params)
+    for name, value in ts.params.state_dict().items():
+        layer, leaf = name.split(".")
+        jleaf = np.asarray(jparams["params"][layer][
+            {"weight": "kernel"}.get(leaf, leaf)])
+        np.testing.assert_array_equal(
+            value.numpy(), jleaf.T if leaf == "weight" else jleaf, name)
+
+    jrs = jax.device_get(jt.replay_state)
+    if pixels:
+        rs = frame_pool_state_from_jax(raw["replay_state"], pt.replay, "cpu")
+        np.testing.assert_array_equal(rs.extras["a_mu"].numpy(),
+                                      np.asarray(jrs.extras["a_mu"]))
+        assert rs.extras["a_mu"].shape == (256, t, 1)
+        for name in ("action", "obs_ids", "next_ids", "frame_epoch"):
+            np.testing.assert_array_equal(getattr(rs, name).numpy(),
+                                          np.asarray(getattr(jrs, name)))
+        assert (rs.pos, rs.size, rs.f_epoch) == (
+            int(jrs.pos), int(jrs.size), int(jrs.f_epoch))
+        bad = dict(raw["replay_state"], extras={})
+        with pytest.raises(ValueError, match="sidecars"):
+            frame_pool_state_from_jax(bad, pt.replay, "cpu")
+    else:
+        rs = device_replay_state_from_jax(raw["replay_state"], pt.replay,
+                                          "cpu")
+        assert rs.storage.keys() == pt.replay_state.storage.keys()
+        for name, rows in rs.storage.items():
+            np.testing.assert_array_equal(rows.numpy(),
+                                          np.asarray(jrs.storage[name]),
+                                          name)
+    # the converted state drives the port's learner
+    for _ in range(2):
+        ts, rs, metrics = pt.core.train_step(ts, rs, pt._offsets(), 0.5)
+    assert ts.step == 6 == ts.opt_state.q.count
+    assert all(np.isfinite(float(v)) for v in metrics.values())

@@ -1,9 +1,10 @@
 """Port of the frame-pool replay and its chunk builder against ``apex_tpu``.
 
 The same chunk stream goes into ``apex_tpu``'s ``FramePoolReplay`` and the
-port's; state and samples must agree bit for bit.  The JAX ring stores
-rows padded to whole (8, 128) tiles, so its rows are compared through
-``rows[:, :frame_dim]``.
+port's; state and samples must agree bit for bit, the per-transition
+sidecars (``extra_spec``, the AQL family's candidate sets) included.
+The JAX ring stores rows padded to whole (8, 128) tiles, so its rows are
+compared through ``rows[:, :frame_dim]``.
 
 One tolerance: the trees hold ``priority ** alpha``, and XLA's and
 PyTorch's f32 ``pow`` differ in the last place on about 2% of inputs.  The
@@ -279,3 +280,61 @@ def test_add_rejects_oversized_and_misshapen_chunks():
         pool.add(state, bad, np.ones(4, np.float32))
     pool.add(state, chunk(4, 8), np.ones(4, np.float32))
     assert state.size == 4
+
+
+def test_sidecars_add_and_sample_match_jax(monkeypatch):
+    """A pool with an ``a_mu`` sidecar: chunks carrying ``extras`` wrap the
+    rings; after every add the sidecar rows equal JAX's, and each sample
+    returns the sampled transitions' rows as a batch key beside the one
+    ``gather_stacks`` call.  The footprint counts the sidecar; a sidecar
+    named like a batch key, or shaped unlike the spec, is refused."""
+    calls = []
+    real = frame_pool_module.gather_stacks
+    monkeypatch.setattr(frame_pool_module, "gather_stacks",
+                        lambda *args: calls.append(args) or real(*args))
+    spec = (("a_mu", (2, 3)),)
+    jpool = JaxPool(capacity=32, frame_shape=SHAPE, frame_stack=S,
+                    alpha=1.0, extra_spec=spec)
+    tpool = FramePoolReplay(capacity=32, frame_shape=SHAPE, frame_stack=S,
+                            alpha=1.0, extra_spec=spec)
+    assert tpool.hbm_bytes() == jpool.hbm_bytes() - (
+        jpool.f_capacity * (jpool.row_dim - jpool.frame_dim))  # no padding
+    js, ts = jpool.init(), tpool.init("cpu")
+    assert ts.extras["a_mu"].shape == (32, 2, 3)
+    rng = np.random.default_rng(4)
+    builder = JaxBuilder(3, 0.99, S, SHAPE, chunk_transitions=16,
+                         extra_shapes={"a_mu": (2, 3)})
+    chunks = _drive([builder], rng, episodes=8, ep_len=(5, 40),
+                    extras=True)[0]
+    assert len(chunks) >= 6
+    for i, chunk in enumerate(chunks):
+        prios = chunk.pop("priorities")
+        js = jpool.add(js, jax.tree.map(jnp.asarray, chunk),
+                       jnp.asarray(prios))
+        tpool.add(ts, chunk, prios)
+        _assert_state_equal(jpool, js, ts)
+        np.testing.assert_array_equal(ts.extras["a_mu"].numpy(),
+                                      np.asarray(js.extras["a_mu"]))
+        key = jax.random.key(i)
+        offsets = np.array(jax.random.uniform(key, (8,), jnp.float32))
+        # apexlint: disable=J004 -- parity test: JAX redraws the offsets above from the same key
+        jb, _, jidx = jpool.sample(js, key, 8, 0.4)
+        calls.clear()
+        tb, _, tidx = tpool.sample(ts, torch.from_numpy(offsets), 0.4)
+        assert len(calls) == 1
+        np.testing.assert_array_equal(tidx.numpy(), np.asarray(jidx))
+        assert tb["a_mu"].shape == (8, 2, 3)
+        np.testing.assert_array_equal(tb["a_mu"].numpy(),
+                                      np.asarray(jb["a_mu"]))
+    with pytest.raises(ValueError, match="collides"):
+        FramePoolReplay(capacity=8, extra_spec=(("reward", (1,)),))
+    bad = dict(chunks[0], extras={"a_mu": np.zeros((16, 3, 2), np.float32)})
+    with pytest.raises(ValueError, match="extras"):
+        tpool.add(ts, bad, np.ones(16, np.float32))
+    state = tpool.init("cpu")
+    actual = sum(t.numel() * t.element_size()
+                 for t in (state.frames, state.action, state.reward,
+                           state.discount, state.obs_ids, state.next_ids,
+                           state.frame_epoch, state.sum_tree, state.min_tree,
+                           state.extras["a_mu"]))
+    assert tpool.hbm_bytes() == actual

@@ -2,12 +2,15 @@
 serial drain.
 
 * ``merge_chunk_messages``: the port's merge equals the JAX one on the
-  same messages, and a merged add equals sequential adds in the port's
-  frame pool, across ring wraparound.
+  same messages, with and without per-transition sidecars (``extras``,
+  the AQL family's candidate sets), and a merged add equals sequential
+  adds in the port's frame pool, across ring wraparound.
 * Pipeline mechanics on a scripted pool: backpressure while behind and the
   ring bound of ``(depth + 1) * merge_max`` chunks, publishes through the
   staging thread (the values from before a later in-place update), the
-  staging thread's death surfacing in the trainer, host-int scalars.
+  staging thread's death surfacing in the trainer, host-int scalars,
+  sidecars staged as tensors; the constructor's ``"cuda"`` default
+  refusing a missing card.
 * The trainer: pipelined and serial runs of one chunk stream end with
   bit-identical params and replay (``scan_steps`` 1 and 4); the port's
   pipelined counters equal the JAX pipelined trainer's; the gate.
@@ -58,13 +61,18 @@ def _one_torch_thread():
     torch.set_num_threads(saved)
 
 
+EXTRA = (5, 2)                   # one a_mu sidecar row: T=5 candidates of A=2
+
+
 def _chunk_messages(seed, n_chunks, builder_cls=FrameChunkBuilder,
-                    drain=drain_builder_chunks, k=K):
+                    drain=drain_builder_chunks, k=K, extras=False):
     """Random episodes through a real chunk builder until it has emitted
-    ``n_chunks`` messages."""
+    ``n_chunks`` messages; with ``extras``, each transition carries an
+    ``a_mu`` sidecar of shape :data:`EXTRA`."""
     rng = np.random.default_rng(seed)
     builder = builder_cls(2, 0.9, STACK, FRAME_SHAPE, chunk_transitions=k,
-                          frame_margin=4, frame_dtype=np.uint8)
+                          frame_margin=4, frame_dtype=np.uint8,
+                          extra_shapes={"a_mu": EXTRA} if extras else None)
     msgs = []
     while len(msgs) < n_chunks:
         builder.begin_episode(rng.integers(0, 255, FRAME_SHAPE))
@@ -73,15 +81,18 @@ def _chunk_messages(seed, n_chunks, builder_cls=FrameChunkBuilder,
             builder.add_step(int(rng.integers(0, 4)), float(rng.normal()),
                              rng.normal(size=4).astype(np.float32),
                              rng.integers(0, 255, FRAME_SHAPE),
-                             terminated=t == ep_len - 1, truncated=False)
+                             terminated=t == ep_len - 1, truncated=False,
+                             extras=({"a_mu": rng.normal(size=EXTRA).astype(
+                                 np.float32)} if extras else None))
         msgs.extend(drain(builder))
     return msgs[:n_chunks]
 
 
-def _pool_spec():
+def _pool_spec(extras=False):
     return FramePoolReplay(capacity=64, frame_shape=FRAME_SHAPE,
                            frame_stack=STACK, frame_capacity=128,
-                           frame_dtype="uint8")
+                           frame_dtype="uint8",
+                           extra_spec=(("a_mu", EXTRA),) if extras else ())
 
 
 def _assert_pool_states_equal(a, b):
@@ -90,6 +101,9 @@ def _assert_pool_states_equal(a, b):
                  "max_priority"):
         assert torch.equal(getattr(a, name), getattr(b, name)), name
     assert (a.pos, a.f_epoch, a.size) == (b.pos, b.f_epoch, b.size)
+    assert a.extras.keys() == b.extras.keys()
+    for name in a.extras:
+        assert torch.equal(a.extras[name], b.extras[name]), name
 
 
 # -- merging -----------------------------------------------------------------
@@ -109,11 +123,31 @@ def test_merge_equals_jax(monkeypatch, m):
         np.testing.assert_array_equal(got["payload"][name], value, name)
 
 
-def test_merged_add_equals_sequential_adds_across_wraparound():
+@pytest.mark.parametrize("m", [2, 5])
+def test_merge_with_sidecars_equals_jax(monkeypatch, m):
+    """Frame chunks with an ``a_mu`` sidecar (the pixel AQL family's): the
+    sidecar rows merge bit-equal to JAX's, real rows compacted and the
+    tail padded with the last real row."""
+    monkeypatch.setenv("APEX_OBS_SPANS", "0")
+    msgs = _chunk_messages(10 + m, m, JaxBuilder, jax_drain, extras=True)
+    want = jax_merge(copy.deepcopy(msgs))["payload"]
+    got = merge_chunk_messages(copy.deepcopy(msgs))["payload"]
+    assert got.keys() == want.keys() and "extras" in got
+    assert got["extras"].keys() == want["extras"].keys() == {"a_mu"}
+    assert got["extras"]["a_mu"].shape == (m * K,) + EXTRA
+    assert got["extras"]["a_mu"].dtype == np.float32
+    np.testing.assert_array_equal(got["extras"]["a_mu"],
+                                  want["extras"]["a_mu"])
+    for name, value in want.items():
+        if name != "extras":
+            np.testing.assert_array_equal(got[name], value, name)
+
+
+def _merged_vs_sequential_adds(extras: bool) -> None:
     """add(merge(c1..cm)) equals add(c1); ...; add(cm) on every field,
     over a stream long enough to wrap both rings."""
-    msgs = _chunk_messages(7, 30)
-    pool = _pool_spec()
+    msgs = _chunk_messages(7, 30, extras=extras)
+    pool = _pool_spec(extras)
     seq, one = pool.init("cpu"), pool.init("cpu")
     widths, i, w = [3, 1, 4, 2, 5], 0, 0
     while i < len(msgs):
@@ -126,6 +160,16 @@ def test_merged_add_equals_sequential_adds_across_wraparound():
         pool.add(one, merged["payload"], merged["priorities"])
         _assert_pool_states_equal(seq, one)
     assert seq.f_epoch > pool.f_capacity and seq.size == pool.capacity
+
+
+def test_merged_add_equals_sequential_adds_across_wraparound():
+    _merged_vs_sequential_adds(extras=False)
+
+
+def test_merged_add_with_sidecars_equals_sequential_adds():
+    """The same with an ``a_mu`` sidecar on every transition: the merged
+    sidecar rows land in the cells the sequential adds write."""
+    _merged_vs_sequential_adds(extras=True)
 
 
 def test_merge_is_schema_gated():
@@ -179,7 +223,7 @@ def test_backpressure_while_behind_and_the_ring_bound():
     pool = ScriptedPool(msgs)
     state = {"behind": True}
     pipe = IngestPipeline(
-        pool, depth=2, merge_max=4,
+        pool, device="cpu", depth=2, merge_max=4,
         state_fn=lambda: PipelineState(behind=state["behind"],
                                        train_eligible=False),
         capacity=1 << 20, frame_capacity=1 << 20)
@@ -203,7 +247,7 @@ def test_backpressure_while_behind_and_the_ring_bound():
 
 def test_publish_rides_the_staging_thread_with_the_values_it_was_given():
     pool = ScriptedPool([])
-    pipe = IngestPipeline(pool)
+    pipe = IngestPipeline(pool, device="cpu")
     pipe.start()
     try:
         weights = torch.arange(4, dtype=torch.float32)
@@ -225,7 +269,7 @@ def test_staging_thread_death_surfaces_to_the_trainer():
         def poll_chunks(self, max_chunks, timeout=0.0):
             raise RuntimeError("decode blew up")
 
-    pipe = IngestPipeline(ExplodingPool([]))
+    pipe = IngestPipeline(ExplodingPool([]), device="cpu")
     pipe.start()
     try:
         with pytest.raises(RuntimeError, match="staging thread died") as err:
@@ -250,7 +294,8 @@ def test_staged_chunk_scalars_stay_host_ints(train_eligible, scan_steps,
     """``n_frames``/``n_trans`` stay Python ints (the replay reads them
     on the host); every array is a tensor."""
     msgs = _chunk_messages(5, 8)
-    pipe = IngestPipeline(ScriptedPool(msgs), scan_steps=scan_steps,
+    pipe = IngestPipeline(ScriptedPool(msgs), device="cpu",
+                          scan_steps=scan_steps,
                           state_fn=lambda: PipelineState(
                               train_eligible=train_eligible))
     pipe.start()
@@ -268,6 +313,47 @@ def test_staged_chunk_scalars_stay_host_ints(train_eligible, scan_steps,
                    if name not in ("n_frames", "n_trans"))
         assert p.dtype == torch.float32
     assert slot.ready is None and slot.tensors == ()    # nothing to wait on
+
+
+@pytest.mark.parametrize("train_eligible,scan_steps,kind", [
+    (True, 1, "single"), (True, 2, "scan"), (False, 1, "merged")])
+def test_staged_sidecars_are_tensors(train_eligible, scan_steps, kind):
+    """A chunk's nested ``extras`` dict is staged as a dict of tensors
+    (each slot kind), rows intact, so the frame pool's add takes it."""
+    msgs = _chunk_messages(6, 8, extras=True)
+    pipe = IngestPipeline(ScriptedPool(copy.deepcopy(msgs)), device="cpu",
+                          scan_steps=scan_steps,
+                          state_fn=lambda: PipelineState(
+                              train_eligible=train_eligible))
+    pipe.start()
+    try:
+        slot = pipe.poll_slot(timeout=5.0)
+    finally:
+        pipe.stop()
+    assert slot.kind == kind
+    payloads = slot.payload if kind == "scan" else [slot.payload]
+    for payload in payloads:
+        a_mu = payload["extras"]["a_mu"]
+        assert isinstance(a_mu, torch.Tensor) and a_mu.dtype == torch.float32
+        assert a_mu.shape[1:] == EXTRA
+    if kind != "merged":
+        np.testing.assert_array_equal(payloads[0]["extras"]["a_mu"].numpy(),
+                                      msgs[0]["payload"]["extras"]["a_mu"])
+    pool = _pool_spec(extras=True)
+    state = pool.init("cpu")
+    pool.add(state, payloads[0], slot.prios[0] if kind == "scan"
+             else slot.prios)
+    assert bool(state.extras["a_mu"][:state.size].abs().sum() > 0)
+
+
+def test_bare_construction_defaults_to_the_card(monkeypatch):
+    """Like every entry point of the port, the pipeline defaults to
+    ``"cuda"`` and refuses a missing card unless the CPU is asked for."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        IngestPipeline(ScriptedPool([]))
+    assert IngestPipeline(ScriptedPool([]),
+                          device="cpu").device == torch.device("cpu")
 
 
 # -- the trainer ----------------------------------------------------------------

@@ -404,7 +404,7 @@ def test_pipeline_stages_pooled_messages_as_the_serial_drain_ingests():
     cfg = cfg.replace(replay=dataclasses.replace(cfg.replay, warmup=40))
     msgs = _messages(cfg, 10, shape=(42, 42, 1), pooled=True)
 
-    pipe = IngestPipeline(ListPool(copy.deepcopy(msgs[:1])),
+    pipe = IngestPipeline(ListPool(copy.deepcopy(msgs[:1])), device="cpu",
                           state_fn=lambda: PipelineState(
                               train_eligible=False))
     pipe.start()
