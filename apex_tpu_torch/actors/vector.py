@@ -317,8 +317,11 @@ def vector_worker_loop(actor_id: int, cfg: ApexConfig, family, chunk_queue,
     each chunk is stamped ``send`` with the version it was acted under."""
     from apex_tpu_torch.obs import spans as obs_spans
     from apex_tpu_torch.obs.trace import get_ring, set_process_label
+    from apex_tpu_torch.tenancy import namespace as tenancy_ns
 
-    set_process_label(f"actor-{actor_id}")
+    # the trace label agrees with the role's tenant-qualified identity
+    set_process_label(tenancy_ns.qualify(tenancy_ns.current_tenant(),
+                                         f"actor-{actor_id}"))
     ring = get_ring()
     family.phase.ring, family.phase.track = ring, "actor-phases"
     family.gap.ring, family.gap.track = ring, "actor-dispatch"

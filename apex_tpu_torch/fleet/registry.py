@@ -327,8 +327,22 @@ def format_fleet_table(snapshot: dict) -> str:
     if slo:
         from apex_tpu_torch.obs.slo import format_slo_lines
         lines.extend(format_slo_lines(slo))
-    # the serving, tenancy and population sections of the JAX table wait
-    # for those planes' port; a snapshot without them renders the same
+    # the controllers' sections (serve-ctl, tenant-ctl, pbt-ctl): each
+    # machine's state and the tail of its timeline, when the learner has
+    # heard from it
+    serving = snapshot.get("serving")
+    if serving:
+        from apex_tpu_torch.serving.deploy import format_serving_lines
+        lines.extend(format_serving_lines(serving))
+    tenancy = snapshot.get("tenancy")
+    if tenancy:
+        from apex_tpu_torch.tenancy.scheduler import format_tenancy_lines
+        lines.extend(format_tenancy_lines(tenancy))
+    population = snapshot.get("population")
+    if population:
+        from apex_tpu_torch.population.controller import (
+            format_population_lines)
+        lines.extend(format_population_lines(population))
     return "\n".join(lines)
 
 

@@ -21,6 +21,10 @@ and discarded.  Replies go through the restricted wire unpickler.
 Lineage: a request is born with a span (``infer_send``), which the reply
 brings back stamped ``infer_reply``; each answered round trip is an
 ``infer_rt`` event on the ``infer-client`` track of the trace ring.
+
+Tenancy: a worker of a non-default tenant (``APEX_TENANT``) stamps its
+tenant on every request, so a shared server answers it under that
+tenant's params (:mod:`apex_tpu_torch.tenancy.namespace`).
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from apex_tpu_torch.obs import spans as obs_spans
 from apex_tpu_torch.obs.trace import get_ring
 from apex_tpu_torch.runtime import wire
 from apex_tpu_torch.serving import fence
+from apex_tpu_torch.tenancy import namespace as tenancy_ns
 
 
 class Window:
@@ -84,6 +89,10 @@ class InferClient:
                  reprobe_s: float | None = None, port: int | None = None):
         self.comms = comms
         self.identity = identity
+        # this worker's tenant, stamped on every request so a shared
+        # server dispatches it under this tenant's params; the default
+        # tenant's requests stay unstamped (the single-tenant schema)
+        self.tenant = tenancy_ns.current_tenant()
         self.shard = 0              # home shard (serving/shard.py stamps it)
         self.sock = zmq.Context.instance().socket(zmq.DEALER)
         self.sock.setsockopt(zmq.IDENTITY, f"{identity}-infer".encode())
@@ -143,6 +152,8 @@ class InferClient:
             msg = {"rid": rid, "obs": np.asarray(obs),
                    "eps": np.asarray(eps, np.float32), "seed": int(seed),
                    "group": int(group)}
+            if not tenancy_ns.is_default(self.tenant):
+                msg["tenant"] = self.tenant
             if obs_spans.enabled():
                 msg[obs_spans.SPAN_KEY] = [
                     obs_spans.new_span(hop="infer_send")]

@@ -46,8 +46,21 @@ fate per request from its seeded stream (:class:`_RequestChaos`: a kill,
 or a drop the client times out on), and a ``mute`` entry drops its
 replies (``chaos_dropped`` / ``chaos_muted`` in its stats).
 
-Left out against the JAX server: the serve-ctl version gate
-(``apply_ctl``) and tenants (ROADMAP item 10b).
+The version gate (:meth:`InferServer.apply_ctl`): the serving tier's
+deployment controller (:mod:`apex_tpu_torch.serving.deploy`, ``--role
+serve-ctl``) sends ``("ctl", body)`` frames on the same ROUTER, answered
+``("ctl_ok", state)``.  A pinned shard holds (counts) every install
+beyond its fence and serves what it has; ``freeze`` and ``canary`` keep a
+copy of the weights the shard serves, and ``rollback`` loads that copy
+back, bit for bit.  The model is loaded in place, so the copy is of the
+loaded tensors (a pending publish is loaded first), never a reference.
+
+Tenants: a roster tenant (``APEX_TENANTS``, population lineages
+included) gets an entry of its own, with its own model, its own
+subscriber on its learner's topic and its own pending publish.  Requests
+coalesce by (tenant, observation shape), so a batch never runs under
+another tenant's params; an unknown tenant is counted and answered dry.
+The gate governs the default tenant only, as in the reference.
 """
 
 from __future__ import annotations
@@ -67,6 +80,8 @@ from apex_tpu_torch.models.dueling import epsilon_greedy, load_host_params
 from apex_tpu_torch.obs import spans as obs_spans
 from apex_tpu_torch.obs.trace import get_ring, set_process_label
 from apex_tpu_torch.runtime import transport, wire
+from apex_tpu_torch.serving import fence
+from apex_tpu_torch.tenancy import namespace as tenancy_ns
 
 
 def quantize_pow2(n: int, cap: int) -> int:
@@ -156,6 +171,17 @@ class InferServer:
         self.param_version = 0
         self.learner_epoch = 0
         self.param_loads = 0
+        # the version gate: while ``_pin`` holds a model fence, installs
+        # beyond it are held; ``_incumbent`` is (version, weights, epoch),
+        # a copy of the weights served when the gate stashed them
+        self._pin: tuple | None = None
+        self._incumbent: tuple | None = None
+        self.held = 0                   # installs refused by the pin
+        self.gate_rollbacks = 0         # restores that changed the model
+        self.ctl_cmds = 0
+        # non-default tenants: tenant -> entry (add_tenant)
+        self.tenants: dict[str, dict] = {}
+        self.unknown_tenant = 0
         self.requests = 0
         self.replies = 0
         self.dry_replies = 0            # requests answered before params
@@ -186,7 +212,14 @@ class InferServer:
 
     def set_params(self, version: int, params, epoch: int = 0) -> None:
         """Install a host state dict (subscriber-fed, or direct from a
-        test or a co-located trainer)."""
+        test or a co-located trainer).  The gate acts here, before the
+        pending slot is overwritten: a pinned shard holds (counts) an
+        install beyond its fence."""
+        eff_epoch = int(epoch) if epoch else self.learner_epoch
+        if self._pin is not None and fence.beyond(eff_epoch, version,
+                                                  self._pin):
+            self.held += 1
+            return
         self._pending_params = params
         self.has_params = True
         self.param_version = int(version)
@@ -202,13 +235,143 @@ class InferServer:
             self.param_loads += 1
 
     def _poll_params(self) -> None:
-        if self.sub is None:
-            return
-        got = self.sub.poll(0)
-        if got is not None:
-            version, params = got
-            self.set_params(version, params,
-                            epoch=getattr(self.sub, "learner_epoch", 0))
+        if self.sub is not None:
+            got = self.sub.poll(0)
+            if got is not None:
+                version, params = got
+                self.set_params(version, params,
+                                epoch=getattr(self.sub, "learner_epoch", 0))
+        for tenant, entry in self.tenants.items():
+            sub = entry["sub"]
+            if sub is None:
+                continue
+            got = sub.poll(0)
+            if got is not None:
+                version, params = got
+                self.set_tenant_params(tenant, version, params,
+                                       epoch=getattr(sub, "learner_epoch",
+                                                     0))
+
+    # -- the serving tier's version gate (serving/deploy.py) ------------------
+
+    def _serving_copy(self) -> dict:
+        """A copy of the weights this shard serves: a pending publish is
+        loaded first (the next dispatch would serve it), then the model's
+        tensors are cloned."""
+        self._load_pending()
+        return {name: t.detach().clone()
+                for name, t in self.model.state_dict().items()}
+
+    def apply_ctl(self, body: dict) -> dict:
+        """One deployment-controller command, applied on the socket
+        thread.  Every command is idempotent: the controller reconciles
+        each tick, so a respawned shard re-converges.
+
+        * ``freeze``: stash the served weights (once) and pin at the
+          shard's own fence.
+        * ``pin``: hold installs beyond an explicit (epoch, version).
+        * ``canary``: stash the served weights (once) and track the
+          stream.
+        * ``rollback``: load the stash back and pin at its fence; a shard
+          with no stash serving beyond the given fence (a respawn that
+          took the candidate) drops to dry replies, so clients act
+          locally rather than on the rejected model.
+        * ``promote``: clear the pin and the stash.
+        * anything else: report the state only.
+        """
+        cmd = body.get("cmd")
+        self.ctl_cmds += 1
+        f = None
+        if "epoch" in body or "version" in body:
+            f = fence.fence_key(body.get("epoch"), body.get("version"))
+        if cmd == "freeze":
+            if self.has_params and self._incumbent is None:
+                self._incumbent = (self.param_version, self._serving_copy(),
+                                   self.learner_epoch)
+            self._pin = fence.fence_key(self.learner_epoch,
+                                        self.param_version)
+        elif cmd == "pin" and f is not None:
+            self._pin = f
+        elif cmd == "canary":
+            if self._incumbent is None and self.has_params:
+                self._incumbent = (self.param_version, self._serving_copy(),
+                                   self.learner_epoch)
+            self._pin = None
+        elif cmd == "rollback":
+            if self._incumbent is not None:
+                v, weights, e = self._incumbent
+                if fence.beyond(self.learner_epoch, self.param_version,
+                                (e, v)):
+                    self.gate_rollbacks += 1    # the restore changed
+                self._pending_params = None     # something
+                self.model.load_state_dict(weights)
+                self.has_params = True
+                self.param_version, self.learner_epoch = int(v), int(e)
+                self._incumbent = None
+                self._pin = fence.fence_key(e, v)
+            elif self._pin is not None and fence.at_or_before(
+                    self.learner_epoch, self.param_version, self._pin):
+                pass        # already rolled back, or frozen pre-candidate
+            elif f is not None and self.has_params \
+                    and fence.beyond(self.learner_epoch,
+                                     self.param_version, f):
+                self.has_params = False
+                self._pending_params = None
+                self._pin = f
+            elif f is not None and self._pin is None:
+                self._pin = f
+        elif cmd == "promote":
+            self._pin = None
+            self._incumbent = None
+        return self.ctl_state(rid=body.get("rid"))
+
+    def ctl_state(self, rid=None) -> dict:
+        """The gate's state for ctl replies and stats: plain builtins."""
+        out = {"shard": self.server_id,
+               "epoch": self.learner_epoch,
+               "version": self.param_version,
+               "pinned": self._pin is not None,
+               "pin": list(self._pin) if self._pin is not None else None,
+               "held": self.held,
+               "rollbacks": self.gate_rollbacks,
+               "has_incumbent": self._incumbent is not None,
+               "has_params": self.has_params}
+        if rid is not None:
+            out["rid"] = rid
+        return out
+
+    # -- tenants -------------------------------------------------------------
+
+    def add_tenant(self, tenant: str, model: torch.nn.Module,
+                   sub=None) -> None:
+        """Serve one more tenant: its own model (its env's geometry and
+        action count) and, optionally, a subscriber on its learner's
+        param topic.  Direct installs go through
+        :meth:`set_tenant_params`."""
+        if tenancy_ns.is_default(tenant):
+            return                  # the default tenant is the server
+        self.tenants[tenant] = {
+            "model": model, "batched": make_batched_policy(model),
+            "obs_shape": getattr(model, "obs_shape", None), "sub": sub,
+            "pending": None, "has_params": False, "version": 0,
+            "epoch": 0}
+
+    def set_tenant_params(self, tenant: str, version: int, params,
+                          epoch: int = 0) -> None:
+        entry = self.tenants[tenant]
+        entry["pending"] = params
+        entry["has_params"] = True
+        entry["version"] = int(version)
+        if epoch:
+            entry["epoch"] = int(epoch)
+        if self.comms.infer_device_params:
+            self._load_tenant(entry)
+
+    def _load_tenant(self, entry: dict) -> None:
+        if entry["pending"] is not None:
+            load_host_params(entry["model"], entry["pending"])
+            entry["pending"] = None
+            self.param_loads += 1
 
     # -- serving -------------------------------------------------------------
 
@@ -250,6 +413,13 @@ class InferServer:
             except wire.WireRejected:
                 self.rejected += 1      # counted, dropped, no reply
                 continue
+            if (isinstance(got, tuple) and len(got) == 2
+                    and got[0] == "ctl" and isinstance(got[1], dict)):
+                # a deployment-controller command: applied here, on the
+                # socket thread, outside the batch window and the chaos
+                # request stream
+                self._reply(ident, ("ctl_ok", self.apply_ctl(got[1])))
+                continue
             if not self._well_formed(got):
                 self.rejected += 1
                 continue
@@ -266,46 +436,77 @@ class InferServer:
 
     def _well_formed(self, got) -> bool:
         """An ``("infer", msg)`` whose fields the forward and the draws
-        can take: an ``[n, *obs_shape]`` array, n epsilons, integer seed
-        and group."""
+        can take: an ``[n, *obs_shape]`` array (the tenant's shape), n
+        epsilons, integer seed and group, and a tenant name if any."""
         if not (isinstance(got, tuple) and len(got) == 2
                 and got[0] == "infer" and isinstance(got[1], dict)):
             return False
         msg = got[1]
         if not {"rid", "obs", "eps", "seed", "group"} <= msg.keys():
             return False
+        tenant = msg.get("tenant")
+        if tenant is not None and not isinstance(tenant, str):
+            return False
+        shape = self.obs_shape
+        if tenant is not None and not tenancy_ns.is_default(tenant):
+            entry = self.tenants.get(tenant)
+            shape = None if entry is None else entry["obs_shape"]
         obs, eps = msg["obs"], msg["eps"]
         return (isinstance(obs, np.ndarray) and obs.ndim >= 2
-                and (self.obs_shape is None
-                     or obs.shape[1:] == self.obs_shape)
+                and (shape is None or obs.shape[1:] == shape)
                 and isinstance(eps, np.ndarray)
                 and eps.shape == (obs.shape[0],)
                 and all(isinstance(msg[k], (int, np.integer))
                         for k in ("rid", "seed", "group")))
 
     @staticmethod
+    def _tenant(msg: dict) -> str:
+        return str(msg.get("tenant") or tenancy_ns.DEFAULT_TENANT)
+
+    @staticmethod
     def _group_by_shape(pending: list) -> list[list]:
-        """Requests of one observation shape share a forward."""
-        by_shape: dict[tuple, list] = {}
+        """Requests of one tenant and one observation shape share a
+        forward (one set of weights, one stacked geometry)."""
+        by_key: dict[tuple, list] = {}
         for item in pending:
-            by_shape.setdefault(item[1]["obs"].shape, []).append(item)
-        return list(by_shape.values())
+            by_key.setdefault((InferServer._tenant(item[1]),
+                               item[1]["obs"].shape), []).append(item)
+        return list(by_key.values())
+
+    def _dry_group(self, group: list) -> int:
+        """No params for this group's tenant: its clients act locally
+        now rather than waiting out their timeout."""
+        for ident, msg, _ in group:
+            self.dry_replies += 1
+            self._reply(ident, ("dry", {"rid": msg["rid"]}))
+        return len(group)
 
     def _dispatch(self, group: list) -> int:
-        """One forward over ``group``, padded to a power-of-two request
-        count by repeating the last request."""
-        if not self.has_params:
-            for ident, msg, _ in group:
-                self.dry_replies += 1
-                self._reply(ident, ("dry", {"rid": msg["rid"]}))
-            return len(group)
-        self._load_pending()
+        """One forward over ``group`` (one tenant, one shape), padded to
+        a power-of-two request count by repeating the last request."""
+        tenant = self._tenant(group[0][1])
+        if tenancy_ns.is_default(tenant):
+            if not self.has_params:
+                return self._dry_group(group)
+            self._load_pending()
+            batched = self.batched
+            pv, epoch = self.param_version, self.learner_epoch
+        else:
+            entry = self.tenants.get(tenant)
+            if entry is None:
+                self.unknown_tenant += 1    # unadmitted: clients act
+                return self._dry_group(group)   # locally
+            if not entry["has_params"]:
+                return self._dry_group(group)
+            self._load_tenant(entry)
+            batched = entry["batched"]
+            pv, epoch = entry["version"], entry["epoch"]
         t0 = time.monotonic()
         n = len(group)
         width = quantize_pow2(n, self.comms.infer_batch_max)
         idx = list(range(n)) + [n - 1] * (width - n)
         msgs = [group[i][1] for i in idx]
-        out = self.batched([m["obs"] for m in msgs],
+        out = batched([m["obs"] for m in msgs],
                            [np.asarray(m["eps"], np.float32) for m in msgs],
                            [int(m["seed"]) for m in msgs],
                            [int(m["group"]) for m in msgs])
@@ -316,7 +517,7 @@ class InferServer:
         for (ident, msg, t_recv), (actions, q) in zip(group, out):
             self.coalesce_hist.record(max(0.0, now - t_recv))
             reply = {"rid": msg["rid"], "actions": actions, "q": q,
-                     "pv": self.param_version, "epoch": self.learner_epoch}
+                     "pv": pv, "epoch": epoch}
             spans = msg.get(obs_spans.SPAN_KEY)
             if spans:
                 obs_spans.stamp_spans(spans, "infer_reply")
@@ -347,7 +548,8 @@ class InferServer:
 
     def gauges(self) -> dict:
         b = self.batch_hist
-        return {"backend_accel": float(self.device.type != "cpu"),
+        return {"tenants": 1 + len(self.tenants),
+                "backend_accel": float(self.device.type != "cpu"),
                 "queue_depth": self._queue_depth,
                 "batch_p50": b.percentile(50), "batch_p90": b.percentile(90),
                 "coalesce_ms_p50": round(
@@ -357,7 +559,10 @@ class InferServer:
                 "requests": self.requests, "replies": self.replies,
                 "dry_replies": self.dry_replies, "rejected": self.rejected,
                 "serve_epoch": self.learner_epoch,
-                "serve_version": self.param_version}
+                "serve_version": self.param_version,
+                "serve_pinned": int(self._pin is not None),
+                "serve_held": self.held,
+                "serve_rollbacks": self.gate_rollbacks}
 
     def stats(self) -> dict:
         return {"server": self.server_id,
@@ -367,6 +572,8 @@ class InferServer:
                 "dispatches": self.dispatches,
                 "chaos_dropped": self.chaos.dropped,
                 "chaos_muted": self.chaos_muted,
+                "ctl_cmds": self.ctl_cmds,
+                "unknown_tenant": self.unknown_tenant,
                 "dispatch_ms_mean": round(
                     1000.0 * float(np.mean(self.dispatch_hist._values))
                     if len(self.dispatch_hist) else 0.0, 3),
@@ -380,6 +587,9 @@ class InferServer:
             self._hb_sender.close(drain_s=0.0)
         if self.sub is not None:
             self.sub.close()
+        for entry in self.tenants.values():
+            if entry["sub"] is not None:
+                entry["sub"].close()
 
 
 def dqn_policy_model(cfg: ApexConfig, device: torch.device | str = "cuda"):
@@ -426,7 +636,9 @@ def run_infer_server(cfg: ApexConfig, family: str = "dqn",
             f"infer shard id {server_id} outside [0, {n_shards}): set "
             f"--infer-shards/APEX_INFER_SHARDS fleet-wide")
     model = dqn_policy_model(cfg, device)
-    sub = transport.ParamSubscriber(cfg.comms)
+    # the base subscriber serves the default tenant's channel (an explicit
+    # empty topic, whatever APEX_TENANT says)
+    sub = transport.ParamSubscriber(cfg.comms, topic=b"")
     try:
         server = InferServer(cfg.comms, model, server_id=server_id,
                              bind_ip=bind_ip, sub=sub,
@@ -435,8 +647,27 @@ def run_infer_server(cfg: ApexConfig, family: str = "dqn",
     except BaseException:
         sub.close()
         raise
+    # one model and one subscriber per roster tenant, on that tenant's
+    # own learner endpoint and topic
+    import dataclasses
+    try:
+        for tenant, spec in sorted(tenancy_ns.load_roster().items()):
+            if spec.family != "dqn":
+                print(f"infer-{server_id}: tenant {tenant!r} skipped "
+                      f"(family {spec.family!r} is not served)", flush=True)
+                continue
+            tcfg = cfg.replace(env=dataclasses.replace(cfg.env,
+                                                       env_id=spec.env_id))
+            server.add_tenant(tenant, dqn_policy_model(tcfg, device),
+                              sub=transport.ParamSubscriber(
+                                  tenancy_ns.tenant_comms(cfg.comms, spec),
+                                  topic=tenancy_ns.param_topic(tenant)))
+    except BaseException:
+        server.close()
+        raise
     print(f"infer-{server_id}: serving on port {server.port} (shard "
-          f"{server_id}/{n_shards}, batch_max={cfg.comms.infer_batch_max}, "
+          f"{server_id}/{n_shards}, tenants=1+{len(server.tenants)}, "
+          f"batch_max={cfg.comms.infer_batch_max}, "
           f"window_ms={cfg.comms.infer_window_ms}, device={server.device}, "
           f"device_params={cfg.comms.infer_device_params})", flush=True)
     try:

@@ -221,7 +221,7 @@ def default_slos(actor_dead_thresh: float | None = None,
             "serving_rollbacks", "serving.rollbacks",
             _thr(e, "APEX_SLO_SERVING_ROLLBACKS", None), "<=",
             description="cumulative serving-tier canary rollbacks "
-                        "(serving/deploy.py, item 10b) — observe-only by "
+                        "(serving/deploy.py) — observe-only by "
                         "default; set 0 to page on ANY rollback"),
     ]
 

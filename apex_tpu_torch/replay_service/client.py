@@ -11,6 +11,11 @@ Protocol per shard (DEALER to the shard's ROUTER,
 * ``("pull", epoch)`` -> ``("batch", msg)`` or ``("dry", info)``
 * ``("prio", seq, idx, prios, epoch)`` -> no reply
 
+A non-default tenant's learner (``APEX_TENANT``) appends its tenant to
+both, so the shard routes them to that tenant's partition, and qualifies
+its DEALER identities, so two tenants' learners never collide on one
+shard's ROUTER.
+
 At most one pull is outstanding per shard, re-sent after
 :data:`RETRY_S`.
 Replies go through the restricted wire unpickler.  Round-robin starts at
@@ -33,6 +38,7 @@ from apex_tpu_torch.config import CommsConfig
 from apex_tpu_torch.fleet.chaos import chaos_from_env
 from apex_tpu_torch.obs import spans as obs_spans
 from apex_tpu_torch.runtime import wire
+from apex_tpu_torch.tenancy import namespace as tenancy_ns
 
 #: seconds before an unanswered pull is sent again (a shard that died
 #: mid-request is probed, not trusted)
@@ -47,6 +53,8 @@ class ReplayServiceClient:
         self.n_shards = comms.replay_shards
         if self.n_shards <= 0:
             raise ValueError("ReplayServiceClient needs replay_shards > 0")
+        self.tenant = tenancy_ns.current_tenant()
+        identity = tenancy_ns.qualify(self.tenant, identity)
         ctx = zmq.Context.instance()
         self.socks = []
         for s in range(self.n_shards):
@@ -88,8 +96,12 @@ class ReplayServiceClient:
             return
         if self._outstanding[s]:
             self.unanswered[s] += 1     # the last pull went unanswered
-        msg = (("pull", self.learner_epoch) if self.learner_epoch
-               else ("pull",))
+        if not tenancy_ns.is_default(self.tenant):
+            # a tenant's pull always names it (its epoch may be 0)
+            msg = ("pull", self.learner_epoch, self.tenant)
+        else:
+            msg = (("pull", self.learner_epoch) if self.learner_epoch
+                   else ("pull",))
         try:
             self.socks[s].send(wire.dumps(msg), zmq.DONTWAIT)
             self._outstanding[s] = True
@@ -156,6 +168,8 @@ class ReplayServiceClient:
                  if self.learner_epoch else 0)
         msg = ("prio", int(seq), np.asarray(idx),
                np.asarray(priorities, np.float32), int(epoch))
+        if not tenancy_ns.is_default(self.tenant):
+            msg = msg + (self.tenant,)
         try:
             self.socks[int(shard)].send(wire.dumps(msg), zmq.DONTWAIT)
             self.prio_sent += 1

@@ -34,13 +34,26 @@ still acked), and a ``mute`` entry drops its replies to the learner
 while its ingress stays up (``chaos_dropped`` / ``chaos_muted`` in its
 stats).
 
-Left out against the JAX role: tenant partitions (ROADMAP item 10b).
+Tenant partitions: the default tenant's core is ``core``, exactly the
+single-tenant shard.  A roster tenant's chunk or pull builds that
+tenant's partition on first sight (``tenant_factory``): its own
+:class:`~apex_tpu_torch.replay.frame_pool.FramePoolReplay` sized from its
+env id, its own warm-up and beta over its own ingest count, its own
+sample generator (seeded from the crc32 of its name, so the default
+partition's stream is untouched) and its quota.  A population lineage's
+partition takes its own priority exponent and beta.  A chunk's tenant is
+parsed from its chunk id, a pull's and a write-back's ride the message;
+an unknown tenant is counted (``unknown_tenant``) and refused, acked so
+its sender never wedges.  With ``snapshot_dir`` every partition
+snapshots to its own file.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -53,6 +66,7 @@ from apex_tpu_torch.obs import spans as obs_spans
 from apex_tpu_torch.obs.trace import get_ring, set_process_label
 from apex_tpu_torch.replay_service.shard import ReplayShardCore
 from apex_tpu_torch.runtime import codec, transport, wire
+from apex_tpu_torch.tenancy import namespace as tenancy_ns
 
 
 def shard_warmup(global_warmup: int, n_shards: int) -> int:
@@ -80,25 +94,50 @@ def dqn_replay_spec(cfg: ApexConfig, device: torch.device):
 
 
 def build_shard_core(cfg: ApexConfig, shard_id: int, family: str = "dqn",
-                     device: torch.device | str = "cuda") -> ReplayShardCore:
+                     device: torch.device | str = "cuda",
+                     tenant_spec=None) -> ReplayShardCore:
     """One shard's core from the fleet config: capacity per shard (N
     shards hold N x capacity), warm-up split, the sample generator seeded
-    ``env.seed + 977_000 + shard_id`` on the shard's device."""
+    ``env.seed + 977_000 + shard_id`` on the shard's device.
+
+    ``tenant_spec`` builds a tenant partition instead (module docstring):
+    the config takes the tenant's env id (and a lineage's vector), the
+    quota is the tenant's, and a non-default tenant's generator seed
+    folds in the crc32 of its name."""
     if family != "dqn":
         raise NotImplementedError(
             f"replay shards serve the dqn family only (got {family!r}); "
             f"aql/r2d2 keep replay in the learner")
+    quota = 0
+    if tenant_spec is not None:
+        if tenant_spec.family != "dqn":
+            raise NotImplementedError(
+                f"tenant {tenant_spec.name!r}: replay partitions serve the "
+                f"dqn family only (got {tenant_spec.family!r})")
+        cfg = cfg.replace(env=dataclasses.replace(
+            cfg.env, env_id=tenant_spec.env_id))
+        quota = tenant_spec.replay_quota
+        from apex_tpu_torch.population.lineage import (LineageSpec,
+                                                       apply_lineage)
+        if isinstance(tenant_spec, LineageSpec):
+            # a lineage's partition builds its trees with its own
+            # priority exponent and beta
+            cfg = apply_lineage(cfg, tenant_spec)
     device = resolve_device(device)
     replay = dqn_replay_spec(cfg, device)
     n = max(1, cfg.comms.replay_shards)
-    generator = torch.Generator(device=device).manual_seed(
-        cfg.env.seed + 977_000 + int(shard_id))
+    seed = cfg.env.seed + 977_000 + int(shard_id)
+    if tenant_spec is not None and not tenancy_ns.is_default(
+            tenant_spec.name):
+        seed = (seed << 31) + zlib.crc32(tenant_spec.name.encode()) % 2 ** 31
+    generator = torch.Generator(device=device).manual_seed(seed)
     return ReplayShardCore(
         replay, generator, batch_size=cfg.learner.batch_size,
         warmup=shard_warmup(cfg.replay.warmup, n), beta=cfg.replay.beta,
         beta_anneal=cfg.replay.beta_anneal, n_shards=n,
         strict_order=cfg.comms.replay_strict_order,
-        presample_depth=cfg.comms.replay_presample, device=device)
+        presample_depth=cfg.comms.replay_presample, device=device,
+        quota=quota)
 
 
 def _peak_bytes(device: torch.device) -> int:
@@ -108,9 +147,13 @@ def _peak_bytes(device: torch.device) -> int:
     return int(torch.cuda.max_memory_allocated(device))
 
 
-def snapshot_path_for(snapshot_dir: str, shard_id: int) -> str:
-    """The one snapshot file of shard ``shard_id`` in ``snapshot_dir``."""
-    return os.path.join(snapshot_dir, f"replay_shard_{shard_id}.pt")
+def snapshot_path_for(snapshot_dir: str, shard_id: int,
+                      tenant: str = tenancy_ns.DEFAULT_TENANT) -> str:
+    """The snapshot file of one (shard, tenant) partition in
+    ``snapshot_dir``; the default tenant keeps the single-tenant name."""
+    if tenancy_ns.is_default(tenant):
+        return os.path.join(snapshot_dir, f"replay_shard_{shard_id}.pt")
+    return os.path.join(snapshot_dir, f"replay_shard_{shard_id}.{tenant}.pt")
 
 
 class _ShardChaos:
@@ -145,10 +188,18 @@ class ReplayShardServer:
     def __init__(self, comms: CommsConfig, shard_id: int,
                  core: ReplayShardCore, bind_ip: str = "*",
                  heartbeat: bool = True, snapshot_path: str | None = None,
-                 snapshot_s: float | None = None):
+                 snapshot_s: float | None = None, tenant_factory=None,
+                 snapshot_dir: str | None = None):
         self.comms = comms
         self.shard_id = int(shard_id)
         self.core = core
+        # the partitions: the default tenant's is ``core``; a roster
+        # tenant's is built by ``tenant_factory(tenant)`` on first sight
+        # (None refuses the tenant)
+        self.cores: dict[str, ReplayShardCore] = {
+            tenancy_ns.DEFAULT_TENANT: core}
+        self._tenant_factory = tenant_factory
+        self.unknown_tenant = 0
         self.identity = f"replay-{shard_id}"
         self.port = comms.replay_port_base + self.shard_id
         self.sock = zmq.Context.instance().socket(zmq.ROUTER)
@@ -158,9 +209,14 @@ class ReplayShardServer:
         self.codec_rejected = 0     # garbage compressed chunks, unacked
         self.batches_served = 0
         self.forgiven = 0           # batches forgiven after silence
-        self._inbox: list = []      # strict-mode deferred (ident, msg)
-        self._last_wb = time.monotonic()
+        self._inbox: list = []      # strict-mode deferred (tenant, ident,
+        #                             msg)
+        # write-back liveness per tenant: one tenant's learner lives and
+        # dies on its own
+        self._last_wb = {tenancy_ns.DEFAULT_TENANT: time.monotonic()}
         self.snapshot_path = snapshot_path
+        self.snapshot_dir = snapshot_dir
+        self.tenant_snapshots: dict[str, int] = {}
         self.snapshot_s = (comms.replay_snapshot_s if snapshot_s is None
                            else float(snapshot_s))
         self._last_snapshot = time.monotonic()
@@ -181,14 +237,54 @@ class ReplayShardServer:
             self._hb = HeartbeatEmitter(
                 self.identity, role="replay",
                 interval_s=comms.heartbeat_interval_s,
-                counters_fn=lambda: {"chunks_sent": self.batches_served,
-                                     "acks_received": self.core.wb_applied},
+                counters_fn=lambda: {
+                    "chunks_sent": self.batches_served,
+                    "acks_received": sum(c.wb_applied
+                                         for c in self.cores.values())},
                 gauges_fn=self.gauges)
 
     # -- message handlers ----------------------------------------------------
 
-    def _ingest(self, ident: bytes, msg: dict) -> None:
-        self.core.ingest_msg(msg)
+    def _core_for(self, tenant: str) -> ReplayShardCore | None:
+        """This tenant's partition, built by the factory on first sight
+        (restored from its own snapshot when there is one); None for a
+        tenant nobody admitted."""
+        got = self.cores.get(tenant)
+        if got is not None or self._tenant_factory is None:
+            return got
+        got = self._tenant_factory(tenant)
+        if got is None:
+            return None
+        path = self._tenant_snapshot_path(tenant)
+        if path is not None and os.path.exists(path):
+            try:
+                got.restore_snapshot(path)
+                print(f"{self.identity}: warm restore ({got.ingested} "
+                      f"transitions, tenant {tenant}) from {path}",
+                      flush=True)
+            except ValueError as exc:
+                print(f"{self.identity}: tenant {tenant!r} cold start, "
+                      f"snapshot unusable ({exc})", flush=True)
+        self.cores[tenant] = got
+        self._last_wb[tenant] = time.monotonic()
+        print(f"{self.identity}: tenant partition for {tenant!r} "
+              f"(warmup={got.warmup}, quota={got.quota or 'unlimited'})",
+              flush=True)
+        return got
+
+    def _tenant_snapshot_path(self, tenant: str) -> str | None:
+        """A partition's snapshot file: the default tenant's is
+        ``snapshot_path``; a roster tenant's lives in ``snapshot_dir``
+        (None: that partition does not snapshot)."""
+        if tenancy_ns.is_default(tenant):
+            return self.snapshot_path
+        if not self.snapshot_dir:
+            return None
+        return snapshot_path_for(self.snapshot_dir, self.shard_id, tenant)
+
+    def _ingest(self, core: ReplayShardCore, ident: bytes,
+                msg: dict) -> None:
+        core.ingest_msg(msg)
         if self._hb is not None:
             self._hb.tick(int(msg.get("n_trans", 0)))
         self.sock.send_multipart([ident, b"ack"])
@@ -198,24 +294,46 @@ class ReplayShardServer:
             self.sock.send_multipart([ident, b"ack"])   # silent data loss
             return
         obs_spans.stamp(msg, "shard_recv")
-        if not self.core.can_ingest():
-            self._inbox.append((ident, msg))    # ack withheld: the credit
-            return                              # window paces the sender
-        self._ingest(ident, msg)
+        tenant = tenancy_ns.tenant_of(str(msg.get("chunk_id") or ""))
+        core = self._core_for(tenant)
+        if core is None:
+            self.unknown_tenant += 1    # refused, but acked: a stranger's
+            self.sock.send_multipart([ident, b"ack"])   # window never
+            return                                      # wedges
+        if core.over_quota():
+            core.quota_dropped += 1     # the partition holds its quota
+            self.sock.send_multipart([ident, b"ack"])
+            return
+        if not core.can_ingest():
+            self._inbox.append((tenant, ident, msg))    # ack withheld:
+            return                      # the credit window paces the sender
+        self._ingest(core, ident, msg)
 
     def _drain_inbox(self) -> None:
-        """Ingest deferred chunks while the core takes them, in order
-        (strict mode closes again after one warm ingest)."""
-        while self._inbox and self.core.can_ingest():
-            ident, msg = self._inbox.pop(0)
-            self._ingest(ident, msg)
+        """Ingest deferred chunks whose partition takes them now, in
+        order per tenant (strict mode closes again after one warm
+        ingest, so later chunks of that tenant stay parked)."""
+        rest: list = []
+        for tenant, ident, msg in self._inbox:
+            core = self.cores.get(tenant)
+            if core is not None and core.can_ingest():
+                self._ingest(core, ident, msg)
+            else:
+                rest.append((tenant, ident, msg))
+        self._inbox = rest
 
-    def _handle_pull(self, ident: bytes, epoch: int = 0) -> None:
-        core = self.core
+    def _handle_pull(self, ident: bytes, epoch: int = 0,
+                     tenant: str = tenancy_ns.DEFAULT_TENANT) -> None:
+        core = self._core_for(tenant)
+        if core is None:
+            self.unknown_tenant += 1
+            self._reply(ident, ("dry", {"ingested": 0, "warm": False,
+                                        "stale_wb": 0, "restored": 0}))
+            return
         if core.note_epoch(int(epoch)):
             # a restarted learner's first pull: its predecessor's
             # outstanding write-backs are gone with it
-            self._last_wb = time.monotonic()
+            self._last_wb[tenant] = time.monotonic()
             self._drain_inbox()
         batch = core.next_batch()
         if batch is None:
@@ -226,17 +344,25 @@ class ReplayShardServer:
             obs_spans.stamp(batch, "batch_send")
             self.batches_served += 1
             reply = ("batch", batch)
+        self._reply(ident, reply)
+
+    def _reply(self, ident: bytes, reply) -> None:
         if self._mute:
             self.chaos_muted += 1       # the reply dies on the down link
             return
         self.sock.send_multipart([ident, wire.dumps(reply)])
 
-    def _handle_prio(self, seq: int, idx, prios, epoch: int = 0) -> None:
-        stale_before = self.core.stale_wb
-        self.core.write_back(int(seq), idx, prios, epoch=int(epoch))
-        if self.core.stale_wb > stale_before:
+    def _handle_prio(self, seq: int, idx, prios, epoch: int = 0,
+                     tenant: str = tenancy_ns.DEFAULT_TENANT) -> None:
+        core = self.cores.get(tenant)
+        if core is None:
+            self.unknown_tenant += 1
+            return
+        stale_before = core.stale_wb
+        core.write_back(int(seq), idx, prios, epoch=int(epoch))
+        if core.stale_wb > stale_before:
             return      # a dead learner's write-back is not liveness
-        self._last_wb = time.monotonic()
+        self._last_wb[tenant] = time.monotonic()
         self._drain_inbox()
 
     # -- lifecycle -----------------------------------------------------------
@@ -247,16 +373,18 @@ class ReplayShardServer:
             hb = self._hb.maybe_beat(0)
             if hb is not None:
                 self._hb_sender.send_stat(hb)
-        core = self.core
-        if (core.outstanding() > 0 and time.monotonic() - self._last_wb
-                > self.comms.dead_after_s):
-            n = core.forgive_outstanding()
-            self.forgiven += n
-            self._last_wb = time.monotonic()
-            print(f"{self.identity}: forgave {n} outstanding write-back(s) "
-                  f"after {self.comms.dead_after_s:.0f} s of learner "
-                  f"silence", flush=True)
-            self._drain_inbox()
+        for tenant, core in list(self.cores.items()):
+            if (core.outstanding() > 0
+                    and time.monotonic() - self._last_wb[tenant]
+                    > self.comms.dead_after_s):
+                n = core.forgive_outstanding()
+                self.forgiven += n
+                self._last_wb[tenant] = time.monotonic()
+                print(f"{self.identity}: forgave {n} outstanding "
+                      f"write-back(s) (tenant {tenant}) after "
+                      f"{self.comms.dead_after_s:.0f} s of learner silence",
+                      flush=True)
+                self._drain_inbox()
         self._maybe_snapshot()
         if not self.sock.poll(timeout_ms, zmq.POLLIN):
             return False
@@ -283,10 +411,16 @@ class ReplayShardServer:
             elif kind == "chunk":
                 self._handle_chunk(ident, msg[1])
             elif kind == "pull":
-                self._handle_pull(ident, int(msg[1]) if len(msg) > 1 else 0)
+                # ("pull",) / ("pull", epoch) is the default tenant; a
+                # tenant's learner appends its name
+                self._handle_pull(ident, int(msg[1]) if len(msg) > 1 else 0,
+                                  str(msg[2]) if len(msg) > 2
+                                  else tenancy_ns.DEFAULT_TENANT)
             elif kind == "prio":
                 self._handle_prio(msg[1], msg[2], msg[3],
-                                  int(msg[4]) if len(msg) > 4 else 0)
+                                  int(msg[4]) if len(msg) > 4 else 0,
+                                  str(msg[5]) if len(msg) > 5
+                                  else tenancy_ns.DEFAULT_TENANT)
             elif kind == "stat":
                 pass                # stats belong to the learner
             else:
@@ -299,20 +433,28 @@ class ReplayShardServer:
         return True
 
     def _maybe_snapshot(self) -> None:
-        """Snapshot at most every ``snapshot_s`` seconds, at quiescent
-        points only; a failed write is counted, never fatal."""
-        if not self.snapshot_path or self.snapshot_s <= 0:
+        """Snapshot every partition at most every ``snapshot_s`` seconds,
+        each at its own quiescent points only (a busy one is skipped this
+        round); a failed write is counted, never fatal."""
+        if ((not self.snapshot_path and not self.snapshot_dir)
+                or self.snapshot_s <= 0):
             return
         if time.monotonic() - self._last_snapshot < self.snapshot_s:
             return
-        if not self.core.quiescent():
-            return
-        try:
-            self.core.save_snapshot(self.snapshot_path)
-            self.snapshots += 1
-        except OSError as exc:
-            self.snapshot_errors += 1
-            print(f"{self.identity}: snapshot failed: {exc}", flush=True)
+        for tenant, core in sorted(self.cores.items()):
+            path = self._tenant_snapshot_path(tenant)
+            if path is None or not core.quiescent():
+                continue
+            try:
+                core.save_snapshot(path)
+                self.snapshots += 1
+                if not tenancy_ns.is_default(tenant):
+                    self.tenant_snapshots[tenant] = \
+                        self.tenant_snapshots.get(tenant, 0) + 1
+            except OSError as exc:
+                self.snapshot_errors += 1
+                print(f"{self.identity}: snapshot failed (tenant {tenant}): "
+                      f"{exc}", flush=True)
         self._last_snapshot = time.monotonic()
 
     def run(self, stop_event=None, max_seconds: float | None = None) -> dict:
@@ -325,7 +467,11 @@ class ReplayShardServer:
         return self.stats()
 
     def gauges(self) -> dict:
-        return {"batches_served": self.batches_served,
+        return {"tenants": len(self.cores),
+                "unknown_tenant": self.unknown_tenant,
+                "quota_dropped": sum(c.quota_dropped
+                                     for c in self.cores.values()),
+                "batches_served": self.batches_served,
                 "inbox": len(self._inbox),
                 "outstanding": self.core.outstanding(),
                 "backend_accel": float(self.core.device.type != "cpu")}
@@ -347,7 +493,13 @@ class ReplayShardServer:
                 "chaos_dropped": self.chaos.dropped,
                 "chaos_muted": self.chaos_muted,
                 "snapshots": self.snapshots,
+                "tenant_snapshots": dict(self.tenant_snapshots),
                 "inbox_deferred": len(self._inbox),
+                "unknown_tenant": self.unknown_tenant,
+                # per-partition counters (the default tenant's repeat the
+                # top-level keys)
+                "tenants": {t: c.stats()
+                            for t, c in sorted(self.cores.items())},
                 "tree_root": float(rs.sum_tree[1]),
                 "tree_leaves": float(leaves.sum()),
                 "gather_launches": dict(LAUNCH_COUNTS),
@@ -370,6 +522,15 @@ def run_replay_shard(cfg: ApexConfig, shard_id: int, family: str = "dqn",
     set_process_label(f"replay-{shard_id}")
     get_ring()                      # arm the trace ring's dump triggers
     core = build_shard_core(cfg, shard_id, family=family, device=device)
+    roster = tenancy_ns.load_roster()
+
+    def tenant_factory(tenant: str):
+        spec = roster.get(tenant)
+        if spec is None:
+            return None
+        return build_shard_core(cfg, shard_id, family=family, device=device,
+                                tenant_spec=spec)
+
     snap_path = None
     if snapshot_dir:
         os.makedirs(snapshot_dir, exist_ok=True)
@@ -384,7 +545,10 @@ def run_replay_shard(cfg: ApexConfig, shard_id: int, family: str = "dqn",
                 print(f"replay-{shard_id}: cold start, snapshot unusable "
                       f"({exc})", flush=True)
     server = ReplayShardServer(cfg.comms, shard_id, core, bind_ip=bind_ip,
-                               snapshot_path=snap_path)
+                               snapshot_path=snap_path,
+                               tenant_factory=(tenant_factory if roster
+                                               else None),
+                               snapshot_dir=snapshot_dir or None)
     print(f"replay-{shard_id}: serving on port {server.port} "
           f"(capacity={cfg.replay.capacity}, warmup={core.warmup}/shard, "
           f"strict={core.strict_order}, device={core.device})", flush=True)

@@ -38,8 +38,14 @@ Lineage: the spans of the chunks ingested since the last sample (at
 most :data:`MAX_BATCH_SPANS`, the freshest) ride the next sampled batch,
 stamped ``shard_sample``.
 
-Left out against the JAX shard: the AQL update key and the tenant quota
-(ROADMAP item 10b).
+Tenant quota: a tenant partition's core holds at most ``quota``
+resident transitions (0: unlimited, the default partition's setting);
+:meth:`ReplayShardCore.over_quota` is what the server refuses ingest on.
+Residency saturates at the ring's capacity, so the quota is judged on
+:meth:`ReplayShardCore.resident`, never on the cumulative ingest count.
+
+Left out against the JAX shard: the AQL update key (the shards serve the
+DQN family only).
 """
 
 from __future__ import annotations
@@ -91,7 +97,7 @@ class ReplayShardCore:
                  *, batch_size: int, warmup: int, beta: float = 0.4,
                  beta_anneal: int = 500_000, n_shards: int = 1,
                  strict_order: bool = True, presample_depth: int = 2,
-                 device: torch.device | str = "cuda"):
+                 device: torch.device | str = "cuda", quota: int = 0):
         self.replay = replay
         self.device = torch.device(device)
         self.state = replay.init(self.device)
@@ -103,6 +109,10 @@ class ReplayShardCore:
         self.n_shards = max(1, int(n_shards))
         self.strict_order = bool(strict_order)
         self.presample_depth = max(1, int(presample_depth))
+        # a tenant partition's bound on resident transitions (0 =
+        # unlimited); the server refuses (acks and counts) ingest past it
+        self.quota = max(0, int(quota))
+        self.quota_dropped = 0
         self.ingested = 0               # transitions ever ingested
         self.chunks = 0
         self.sampled = 0                # batches ever sampled
@@ -124,6 +134,16 @@ class ReplayShardCore:
     def outstanding(self) -> int:
         """Batches sampled whose priorities have not come back."""
         return self.sampled - self.wb_applied
+
+    def resident(self) -> int:
+        """Transitions resident now: the ring overwrites past its
+        capacity, so residency saturates there."""
+        return min(self.ingested, self.replay.capacity)
+
+    def over_quota(self) -> bool:
+        """The partition holds its tenant's quota: further ingest is
+        refused."""
+        return self.quota > 0 and self.resident() >= self.quota
 
     def can_ingest(self) -> bool:
         """Strict mode defers ingest behind an outstanding write-back."""
@@ -329,4 +349,6 @@ class ReplayShardCore:
             "restored": self.restored,
             "outbox": len(self._outbox),
             "warm": self.warm,
+            "quota": self.quota,
+            "quota_dropped": self.quota_dropped,
         }

@@ -39,6 +39,16 @@ Examples::
     python -m apex_tpu_torch.runtime --role status
     python -m apex_tpu_torch.runtime --role status --metrics [--http 9100]
 
+    # the control planes: canaries over 2 infer shards, tenant placement
+    # over the APEX_TENANTS roster, PBT over the APEX_POPULATION lineages
+    python -m apex_tpu_torch.runtime --role serve-ctl --infer-shards 2 \
+        --serve-canary-frac 0.5 --serve-soak 60
+    APEX_TENANTS='[{"name": "rally", "env_id": "ApexRally-v0"}]' \
+        python -m apex_tpu_torch.runtime --role tenant-ctl --replay-shards 2
+    APEX_POPULATION='[{"name": "la"}, {"name": "lb"}]' \
+        python -m apex_tpu_torch.runtime --role pbt-ctl --pbt-decide 30
+
+SIGTERM stops the learner role at its next loop iteration (exit 0).
 The replay, infer and loadgen roles skip the startup barrier and print
 their final counters as one ``<identity>: stats {...}`` JSON line when
 SIGTERM stops them.  ``--role status`` asks a running learner's status
@@ -49,13 +59,17 @@ trace ring (merge the dumps with ``python -m apex_tpu_torch.obs.merge
 DIR``); ``--profile-dir`` runs the learning roles inside a
 ``torch.profiler`` trace (:func:`apex_tpu_torch.utils.profiling.trace`).
 
-The roles of the JAX CLI that are not ported yet (``serve-ctl``,
-``tenant-ctl``, ``pbt-ctl``) stay among the choices and exit with status
-2 naming their ROADMAP item; so does ``--mesh-dp`` above 1 (item 4).
-Flags that only those roles read, ``--tenant`` and the Atari wrapper
-switches are not in the parser.  Beside ``--device`` the parser has one
-flag the JAX one lacks, ``--send-interval`` (env twin
-``APEX_SEND_INTERVAL``), the actors' chunk size.
+The three controllers (``serve-ctl``, ``tenant-ctl``, ``pbt-ctl``) skip
+the barrier, run on the CPU (they hold no tensors) and tick every
+``--serve-interval`` seconds until SIGTERM or ``--max-seconds``.
+``--tenant`` (env twin ``APEX_TENANT``) makes every role of one tenant
+qualify its identities, chunk ids and param topic; a tenant that names an
+``APEX_POPULATION`` lineage adopts that lineage's env id and
+hyperparameters.  ``--mesh-dp`` above 1 exits with status 2 naming its
+ROADMAP item (4); the Atari wrapper switches are not in the parser.
+Beside ``--device`` the parser has one flag the JAX one lacks,
+``--send-interval`` (env twin ``APEX_SEND_INTERVAL``), the actors' chunk
+size.
 """
 
 from __future__ import annotations
@@ -71,13 +85,6 @@ import threading
 from apex_tpu_torch.config import (ActorConfig, ApexConfig, AQLConfig,
                                    CommsConfig, EnvConfig, LearnerConfig,
                                    ReplayConfig, RoleIdentity)
-
-#: roles of the JAX CLI this port does not run yet, with their ROADMAP item
-UNPORTED_ROLES = {
-    "serve-ctl": "item 10b (tooling: the serving controller)",
-    "tenant-ctl": "item 10b (tooling: tenancy)",
-    "pbt-ctl": "item 10b (tooling: population-based training)",
-}
 
 #: roles that run inside --profile-dir's torch.profiler trace
 PROFILED_ROLES = ("learner", "apex", "dqn", "aql", "r2d2")
@@ -105,9 +112,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "batched-inference shard), loadgen (on-device "
                         "rollouts as a chunk source); single-host drivers: "
                         "dqn/aql/r2d2/apex; enjoy: evaluate a checkpoint; "
-                        "status: a running learner's fleet table.  "
-                        "serve-ctl/tenant-ctl/pbt-ctl are not ported yet "
-                        "and exit with status 2")
+                        "status: a running learner's fleet table; the "
+                        "controllers: serve-ctl (canary deployments over "
+                        "the infer shards), tenant-ctl (tenant placement), "
+                        "pbt-ctl (population-based training)")
     p.add_argument("--family", default=e.get("APEX_FAMILY", "dqn"),
                    choices=["dqn", "aql", "r2d2"])
     p.add_argument("--rollout", default=e.get("APEX_ROLLOUT", "host"),
@@ -127,6 +135,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--steps-per-dispatch", type=int,
                    default=int(e.get("APEX_STEPS_PER_DISPATCH", 4)),
                    help="--rollout fused: macro steps per dispatch")
+    # the tenant namespace: every role of one tenant opts in with this
+    # flag or its env twin; APEX_TENANTS (a JSON roster) configures the
+    # shared planes
+    p.add_argument("--tenant", default=e.get("APEX_TENANT", ""),
+                   help="this process's tenant name (env twin "
+                        "APEX_TENANT; empty = the default tenant t0)")
     # env
     p.add_argument("--env-id", default=e.get("APEX_ENV_ID",
                                              "SeaquestNoFrameskip-v4"))
@@ -254,6 +268,41 @@ def build_parser() -> argparse.ArgumentParser:
                                or c.param_keyframe_every),
                    help="dense keyframe at least every N publishes in "
                         "--param-delta mode")
+    # the controllers' knobs (serving/deploy.py, population/controller.py;
+    # the lineage roster itself rides APEX_POPULATION)
+    p.add_argument("--serve-canary-frac", type=float,
+                   default=float(e.get("APEX_SERVE_CANARY_FRAC") or 0.5),
+                   help="serve-ctl: fraction of shards canarying a new "
+                        "model version (lowest indices; the rest freeze "
+                        "the incumbent)")
+    p.add_argument("--serve-soak", type=float,
+                   default=float(e.get("APEX_SERVE_SOAK_S") or 60.0),
+                   help="serve-ctl: seconds the canary's gate objectives "
+                        "must hold before promotion")
+    p.add_argument("--serve-version-every", type=int,
+                   default=int(e.get("APEX_SERVE_VERSION_EVERY") or 0),
+                   help="serve-ctl: minimum param-version spacing between "
+                        "deployments within one learner epoch (0 = deploy "
+                        "on epoch changes only)")
+    p.add_argument("--serve-interval", type=float,
+                   default=float(e.get("APEX_SERVE_INTERVAL_S") or 5.0),
+                   help="the controllers: seconds between control rounds")
+    p.add_argument("--pbt-decide", type=float,
+                   default=float(e.get("APEX_PBT_DECIDE_S") or 30.0),
+                   help="pbt-ctl: seconds between exploit/explore rounds")
+    p.add_argument("--pbt-frac", type=float,
+                   default=float(e.get("APEX_PBT_FRAC") or 0.25),
+                   help="pbt-ctl: truncation fraction (the bottom frac of "
+                        "each task ladder restores the top frac's "
+                        "checkpoint, at least one lineage each)")
+    p.add_argument("--pbt-resample", type=float,
+                   default=float(e.get("APEX_PBT_RESAMPLE") or 0.25),
+                   help="pbt-ctl: per-field probability that explore "
+                        "resamples from the band instead of perturbing")
+    p.add_argument("--pbt-min-episodes", type=int,
+                   default=int(e.get("APEX_PBT_MIN_EPISODES") or 4),
+                   help="pbt-ctl: eval episodes behind a lineage's score "
+                        "before selection judges it")
     # fleet plane: the heartbeat cadence, the registry's state-machine
     # windows and the park threshold
     p.add_argument("--heartbeat-interval", type=float,
@@ -406,9 +455,6 @@ def _refuse(what: str) -> int:
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
-    if args.role in UNPORTED_ROLES:
-        return _refuse(f"--role {args.role} is not ported yet: ROADMAP "
-                       f"{UNPORTED_ROLES[args.role]}")
     if args.mesh_dp > 1:
         return _refuse(f"--mesh-dp {args.mesh_dp}: the sharded learner is "
                        f"not ported yet: ROADMAP item 4 (torch.distributed)")
@@ -418,14 +464,27 @@ def main(argv: list[str] | None = None) -> int:
         # the trace ring reads the env when it is made; exporting here
         # covers the worker processes too, which inherit it
         os.environ["APEX_TRACE_DIR"] = args.trace_dir
+    if args.tenant:
+        # the namespace reads the env at each qualification site;
+        # exporting here covers the worker processes too
+        os.environ["APEX_TENANT"] = args.tenant
+    cfg = config_from_args(args)
+    # a tenant that names an APEX_POPULATION lineage adopts its env id and
+    # hyperparameter vector; no entry (or one without overrides) leaves
+    # the config as it is
+    from apex_tpu_torch.population.lineage import (apply_lineage,
+                                                   load_population)
+    from apex_tpu_torch.tenancy import namespace as tenancy_ns
+    lineage = load_population().get(tenancy_ns.current_tenant())
+    if lineage is not None:
+        cfg = apply_lineage(cfg, lineage)
     profile_ctx = contextlib.nullcontext()
     if args.profile_dir and args.role in PROFILED_ROLES:
         from apex_tpu_torch.utils.profiling import trace
         profile_ctx = trace(args.profile_dir)
     try:
         with profile_ctx:
-            return _dispatch(args, config_from_args(args),
-                             identity_from_args(args))
+            return _dispatch(args, cfg, identity_from_args(args))
     except NotImplementedError as exc:      # a path not ported yet
         return _refuse(str(exc))
 
@@ -454,9 +513,12 @@ def _dispatch(args: argparse.Namespace, cfg: ApexConfig,
                     restore=args.restore, rollout=args.rollout,
                     device=args.device,
                     rollout_len=args.rollout_len or None,
-                    steps_per_dispatch=args.steps_per_dispatch)
+                    steps_per_dispatch=args.steps_per_dispatch,
+                    stop_event=_stop_on_sigterm())
     elif args.role in ("replay", "infer", "loadgen"):
         _run_service(args, cfg, identity)
+    elif args.role in ("serve-ctl", "tenant-ctl", "pbt-ctl"):
+        _run_controller(args, cfg, identity)
     elif args.role == "status":
         return _status(args, cfg)
     elif args.role == "actor":
@@ -571,6 +633,38 @@ def _run_service(args: argparse.Namespace, cfg: ApexConfig,
                             rollout_len=args.rollout_len or None,
                             device=args.device)
     print(f"{name}: stats {json.dumps(stats)}", flush=True)
+
+
+def _run_controller(args: argparse.Namespace, cfg: ApexConfig,
+                    identity: RoleIdentity) -> None:
+    """The three controllers: no barrier (each holds until the learners
+    it probes answer), one control round every ``--serve-interval``
+    seconds until SIGTERM or ``--max-seconds``; the final snapshot goes
+    to stdout as one ``<role>: snapshot {...}`` line."""
+    from apex_tpu_torch.runtime.roles import _with_ips
+    cfg = cfg.replace(comms=_with_ips(cfg.comms, identity))
+    stop = _stop_on_sigterm()
+    if args.role == "serve-ctl":
+        from apex_tpu_torch.serving.deploy import run_serve_ctl
+        snap = run_serve_ctl(cfg, identity,
+                             canary_frac=args.serve_canary_frac,
+                             soak_s=args.serve_soak,
+                             version_every=args.serve_version_every,
+                             interval_s=args.serve_interval,
+                             stop_event=stop, max_seconds=args.max_seconds)
+    elif args.role == "tenant-ctl":
+        from apex_tpu_torch.tenancy.scheduler import run_tenant_ctl
+        snap = run_tenant_ctl(cfg, interval_s=args.serve_interval,
+                              stop_event=stop, max_seconds=args.max_seconds)
+    else:
+        from apex_tpu_torch.population.controller import run_pbt_ctl
+        snap = run_pbt_ctl(cfg, interval_s=args.serve_interval,
+                           decide_every_s=args.pbt_decide,
+                           frac=args.pbt_frac,
+                           resample_prob=args.pbt_resample,
+                           min_episodes=args.pbt_min_episodes,
+                           stop_event=stop, max_seconds=args.max_seconds)
+    print(f"{args.role}: snapshot {json.dumps(snap)}", flush=True)
 
 
 def _run_driver(args: argparse.Namespace, cfg: ApexConfig) -> None:

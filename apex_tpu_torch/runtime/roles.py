@@ -38,8 +38,11 @@ identity's seeded schedule (:func:`~apex_tpu_torch.fleet.chaos.
 maybe_wrap_sender`), each chunk is stamped ``send``
 (:func:`~apex_tpu_torch.obs.spans.mark_send`), each process labels its
 trace ring by its identity, and the evaluator records its episodes there
-and applies the chaos score bias.  Not ported: the tenancy identity
-(item 10b).
+and applies the chaos score bias.  Under ``APEX_TENANT`` every role's
+wire identity is tenant-qualified (:func:`apex_tpu_torch.tenancy.
+namespace.qualify`): two tenants' ``actor-0`` never collide on a shared
+ROUTER, and the tenant prefix partitions their chunk ids.  The default
+tenant qualifies to the bare name.
 """
 
 from __future__ import annotations
@@ -61,6 +64,7 @@ from apex_tpu_torch.obs import spans as obs_spans
 from apex_tpu_torch.obs.trace import get_ring, set_process_label
 from apex_tpu_torch.runtime import transport
 from apex_tpu_torch.runtime.codec import KeyframeRequest
+from apex_tpu_torch.tenancy import namespace as tenancy_ns
 
 FAMILIES = ("dqn", "aql", "r2d2")
 
@@ -222,7 +226,7 @@ def run_learner(cfg: ApexConfig, n_peers: int, total_steps: int,
                 rollout: str = "host", device: str | torch.device = "cuda",
                 publish_min_seconds: float = 0.2, log_every: int = 200,
                 rollout_len: int | None = None,
-                steps_per_dispatch: int = 4):
+                steps_per_dispatch: int = 4, stop_event=None):
     """Learner role: barrier, publish, then the concurrent learner loop
     over socket-delivered chunks.  ``n_peers`` = actors + evaluators
     expected at the startup barrier (``learner.py:48-49``).  Returns the
@@ -244,7 +248,10 @@ def run_learner(cfg: ApexConfig, n_peers: int, total_steps: int,
     ``comms.replay_shards > 0`` the trainer samples from the replay shards
     through a :class:`~apex_tpu_torch.replay_service.client.
     ReplayServiceClient`; the chunk socket stays bound for stats,
-    heartbeats and the actors' fallback chunks."""
+    heartbeats and the actors' fallback chunks.
+
+    ``stop_event``: setting it makes ``train()`` return at its next loop
+    iteration (the CLI sets it on SIGTERM, so the role exits 0)."""
     if rollout not in ("host", "ondevice", "fused"):
         raise ValueError(f"unknown rollout {rollout!r}")
     _check_family(family)
@@ -290,6 +297,8 @@ def run_learner(cfg: ApexConfig, n_peers: int, total_steps: int,
         else:
             from apex_tpu_torch.training.r2d2 import R2D2ApexTrainer as cls
         trainer = cls(cfg, pool=pool, **kw)
+        if stop_event is not None:
+            trainer._stop_requested = stop_event
         if restore:
             trainer.restore()        # newest checkpoint in checkpoint_dir
         if shards > 0:
@@ -392,7 +401,8 @@ def run_actor(cfg: ApexConfig, identity: RoleIdentity,
     cfg, worker_fn, model_spec, chunk_arg = _actor_body(cfg, family,
                                                         identity.n_actors)
     stop_event = stop_event or threading.Event()
-    name = f"actor-{identity.actor_id}"
+    name = tenancy_ns.qualify(tenancy_ns.current_tenant(),
+                              f"actor-{identity.actor_id}")
     comms = _with_ips(cfg.comms, identity)
     sub = _join_fleet(comms, name, stop_event, barrier_timeout_s)
     if sub is None:
@@ -450,7 +460,8 @@ def run_loadgen(cfg: ApexConfig, identity: RoleIdentity,
         raise NotImplementedError(
             f"--role loadgen serves the dqn family only (got {family!r})")
     stop_event = stop_event or threading.Event()
-    name = f"loadgen-{identity.actor_id}"
+    name = tenancy_ns.qualify(tenancy_ns.current_tenant(),
+                              f"loadgen-{identity.actor_id}")
     set_process_label(name)
     get_ring()                      # arm the trace ring's dump triggers
     comms = _with_ips(cfg.comms, identity)
@@ -553,7 +564,9 @@ def run_evaluator(cfg: ApexConfig, identity: RoleIdentity | None = None,
     # a unique socket and barrier identity: duplicates dedup at the
     # barrier (a deadlock) and misroute on the ROUTER; evaluator ids carry
     # no ladder slot, so a random suffix makes N default evaluators safe
-    name = f"evaluator-{identity.actor_id}-{uuid.uuid4().hex[:6]}"
+    name = tenancy_ns.qualify(
+        tenancy_ns.current_tenant(),
+        f"evaluator-{identity.actor_id}-{uuid.uuid4().hex[:6]}")
     comms = _with_ips(cfg.comms, identity)
     env = make_eval_env(cfg.env.env_id, cfg.env, seed=cfg.env.seed + 7777)
     try:

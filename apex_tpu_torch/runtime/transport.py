@@ -34,8 +34,11 @@ withholds the acks of a scheduled chunk window for a while (delayed,
 never dropped) and :class:`RemotePool`'s publisher runs the learner's
 kill/stall schedule.
 
-Not ported: tenant topics (the default tenant's topic is empty, so the
-wire is the same).
+Tenant topics: a non-default tenant's publisher prefixes every param
+frame with its :func:`~apex_tpu_torch.tenancy.namespace.param_topic` tag,
+and its subscribers subscribe that prefix and strip it, so a shared infer
+shard attributes each publish to its tenant.  The default tenant's topic
+is empty: its frames are the single-tenant frames, byte for byte.
 """
 
 from __future__ import annotations
@@ -53,6 +56,7 @@ from apex_tpu_torch.fleet.chaos import chaos_from_env, maybe_wrap_publisher
 from apex_tpu_torch.obs import spans as obs_spans
 from apex_tpu_torch.runtime import codec as wire_codec
 from apex_tpu_torch.runtime import wire
+from apex_tpu_torch.tenancy import namespace as tenancy_ns
 
 
 def _ctx() -> zmq.Context:
@@ -88,14 +92,21 @@ class ParamPublisher:
     ``delta`` (default ``comms.param_delta``): publish keyframes and
     sparse deltas against the last keyframe instead of dense trees; a
     keyframe at least every ``keyframe_every`` publishes, on the first
-    publish, on every epoch change and after :meth:`force_keyframe`."""
+    publish, on every epoch change and after :meth:`force_keyframe`.
+
+    ``topic`` prefixes every frame (module docstring); None takes this
+    process's tenant from ``APEX_TENANT``, and the default tenant's topic
+    is empty."""
 
     def __init__(self, comms: CommsConfig, bind_ip: str = "*",
                  delta: bool | None = None,
-                 keyframe_every: int | None = None):
+                 keyframe_every: int | None = None,
+                 topic: bytes | None = None):
         self.sock = _ctx().socket(zmq.PUB)
         self.sock.setsockopt(zmq.SNDHWM, comms.param_hwm)
         _bind(self.sock, f"tcp://{bind_ip}:{comms.param_port}")
+        self.topic = (tenancy_ns.param_topic(tenancy_ns.current_tenant())
+                      if topic is None else topic)
         self.epoch = 0
         self.delta = comms.param_delta if delta is None else bool(delta)
         self.keyframe_every = max(1, int(
@@ -128,7 +139,7 @@ class ParamPublisher:
             return
         msg = ((version, params, self.epoch) if self.epoch
                else (version, params))
-        self._send(pickle.dumps(msg, protocol=5))
+        self._send(self.topic + pickle.dumps(msg, protocol=5))
 
     def _send(self, payload: bytes) -> None:
         # Reading ZMQ_EVENTS makes libzmq take in the commands its I/O
@@ -165,7 +176,7 @@ class ParamPublisher:
             frame["crc"] = wire_codec.bytes_checksum(new_bytes)
             frame["updates"] = updates
             self.param_deltas += 1
-        payload = pickle.dumps(frame, protocol=5)
+        payload = self.topic + pickle.dumps(frame, protocol=5)
         self._send(payload)
         self._last_epoch = epoch
         self._seq += 1
@@ -180,12 +191,20 @@ class ParamPublisher:
 
 class ParamSubscriber:
     """Actor/evaluator-side SUB with CONFLATE=1: the socket keeps exactly
-    the newest message (``actor.py:40-49``), no drain loop needed."""
+    the newest message (``actor.py:40-49``), no drain loop needed.
 
-    def __init__(self, comms: CommsConfig, learner_ip: str | None = None):
+    ``topic``: a non-default tenant's subscriber subscribes its tenant's
+    frame prefix and strips it before decoding, so CONFLATE keeps the
+    newest frame of this tenant; None takes the tenant from
+    ``APEX_TENANT``, and the default tenant subscribes everything."""
+
+    def __init__(self, comms: CommsConfig, learner_ip: str | None = None,
+                 topic: bytes | None = None):
+        self.topic = (tenancy_ns.param_topic(tenancy_ns.current_tenant())
+                      if topic is None else topic)
         self.sock = _ctx().socket(zmq.SUB)
         self.sock.setsockopt(zmq.CONFLATE, 1)
-        self.sock.setsockopt(zmq.SUBSCRIBE, b"")
+        self.sock.setsockopt(zmq.SUBSCRIBE, self.topic)
         ip = learner_ip or comms.learner_ip
         self.sock.connect(f"tcp://{ip}:{comms.param_port}")
         self.rejected = 0           # payloads outside the wire allowlist
@@ -209,8 +228,12 @@ class ParamSubscriber:
         reassemble to the same 2-tuple."""
         if not self.sock.poll(timeout_ms, zmq.POLLIN):
             return None
+        payload = tenancy_ns.strip_topic(self.topic, self.sock.recv())
+        if payload is None:
+            self.rejected += 1          # a frame outside this topic
+            return None
         try:
-            got = wire.restricted_loads(self.sock.recv())
+            got = wire.restricted_loads(payload)
         except wire.WireRejected:
             self.rejected += 1      # one bad publish costs one poll
             return None

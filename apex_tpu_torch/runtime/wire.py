@@ -4,8 +4,8 @@ Counterpart of :mod:`apex_tpu.runtime.wire`.  The chunk plane's wire
 format is pickle, and a bare ``pickle.loads`` runs whatever callable a
 payload names.  :class:`RestrictedUnpickler` resolves only the globals the
 port's messages need (numpy's array reconstruction, the actor pool's
-stat classes, fleet heartbeats and the codec's keyframe request); any
-other raises :class:`WireRejected` for the caller to
+stat classes, fleet heartbeats, the codec's keyframe request and the
+three controllers' snapshot stats); any other raises :class:`WireRejected` for the caller to
 count and drop.  Chunk messages themselves are dicts, tuples and arrays,
 which unpickle without naming a class.
 """
@@ -28,6 +28,9 @@ ALLOWED_GLOBALS: frozenset[tuple[str, str]] = frozenset({
     ("apex_tpu_torch.actors.pool", "ActorTimingStat"),
     ("apex_tpu_torch.fleet.heartbeat", "Heartbeat"),
     ("apex_tpu_torch.runtime.codec", "KeyframeRequest"),
+    ("apex_tpu_torch.serving.deploy", "ServingStat"),
+    ("apex_tpu_torch.tenancy.scheduler", "TenancyStat"),
+    ("apex_tpu_torch.population.controller", "PopulationStat"),
     ("numpy", "ndarray"),
     ("numpy", "dtype"),
     ("numpy._core.multiarray", "_reconstruct"),

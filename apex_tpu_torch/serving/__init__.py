@@ -1,7 +1,8 @@
-"""The serving tier's shared pieces: model-version fencing
-(:mod:`~apex_tpu_torch.serving.fence`) and identity-hashed infer-shard
-routing (:mod:`~apex_tpu_torch.serving.shard`).
+"""The serving tier: model-version fencing
+(:mod:`~apex_tpu_torch.serving.fence`), identity-hashed infer-shard
+routing (:mod:`~apex_tpu_torch.serving.shard`) and the deployment
+controller (:mod:`~apex_tpu_torch.serving.deploy`, ``--role serve-ctl``).
 
-Counterpart of :mod:`apex_tpu.serving`.  The deployment controller
-(``serving/deploy.py``, ``--role serve-ctl``) is not ported (ROADMAP
-item 10b)."""
+Counterpart of :mod:`apex_tpu.serving`.  The submodules import lazily:
+``deploy`` is stdlib at module level, so the learner reads
+:class:`~apex_tpu_torch.serving.deploy.ServingStat` without zmq."""

@@ -22,11 +22,14 @@ the BARE id and the EMPTY topic — a fleet that never sets
 ``APEX_TENANT`` produces byte-identical wire traffic, identities and
 chunk ids to a single-tenant fleet.
 
-In the port the fleet registry (:func:`tenant_of`, :data:`DEFAULT_TENANT`)
-and the SLO engine's ``@tenant`` signal paths read this module.  The
-placement scheduler, tenant topics on the transport and the per-tenant
-replay partitions are not ported yet, and neither is the population
-plane that folds ``APEX_POPULATION`` lineages into the roster.
+Its readers in the port: the fleet registry and the SLO engine's
+``@tenant`` signal paths, the param channel's tenant topics
+(:mod:`apex_tpu_torch.runtime.transport`), the replay shards' tenant
+partitions, the infer server's tenant entries, the roles' qualified
+identities and the placement scheduler
+(:mod:`apex_tpu_torch.tenancy.scheduler`, ``--role tenant-ctl``).
+:func:`load_roster` folds the ``APEX_POPULATION`` lineages
+(:mod:`apex_tpu_torch.population.lineage`) into the roster.
 """
 
 from __future__ import annotations
@@ -201,7 +204,13 @@ def load_roster(environ=None) -> dict[str, TenantSpec]:
     :class:`TenantSpec` dicts) as ``name -> spec``; empty when unset.
     The default tenant needs no roster entry — it is the fleet that was
     already there — but MAY carry one (quota/weight for the shared
-    planes)."""
+    planes).
+
+    Population lineages (``APEX_POPULATION``,
+    :mod:`apex_tpu_torch.population.lineage`) fold in as tenants: each
+    lineage is a tenant, so the shared planes admit a population with
+    one export; an explicit ``APEX_TENANTS`` entry of the same name
+    wins."""
     e = os.environ if environ is None else environ
     raw = str(e.get("APEX_TENANTS", "")).strip()
     out: dict[str, TenantSpec] = {}
@@ -212,6 +221,13 @@ def load_roster(environ=None) -> dict[str, TenantSpec]:
                 raise ValueError(
                     f"duplicate tenant {spec.name!r} in roster")
             out[spec.name] = spec
+    pop_raw = str(e.get("APEX_POPULATION", "")).strip()
+    if pop_raw:
+        # imported here: population builds on this module (a LineageSpec
+        # is a TenantSpec), so the dependency runs at call time only
+        from apex_tpu_torch.population.lineage import parse_population
+        for name, lineage in parse_population(pop_raw).items():
+            out.setdefault(name, lineage.as_tenant())
     return out
 
 

@@ -64,9 +64,19 @@ param-lag histograms (:class:`~apex_tpu_torch.obs.spans.LearnerObs`,
 :meth:`ConcurrentTrainer.latency_summary`).  Spans are metadata: the
 learner's state is the same with them on or off.
 
-Not ported yet: the serving, tenancy and population sections and the ctl
-queue of those planes' controllers, and the sharded plan.  Where the JAX
-trainer splits
+The control planes (``apex.py:158-180, 552-601, 740-761, 879-895,
+981-1150``): the snapshots that ``--role serve-ctl``, ``tenant-ctl`` and
+``pbt-ctl`` ship on the stat channel land in the ``serving``,
+``tenancy`` and ``population`` sections of :meth:`ConcurrentTrainer.
+fleet_summary`, the status table and the Prometheus text.  The status
+server's ctl frames (the PBT controller's exploit and explore) go into a
+bounded queue that the trainer thread drains at each health tick
+(:meth:`ConcurrentTrainer._apply_ctl`): :meth:`~ConcurrentTrainer.
+restore_weights` imposes a donor checkpoint's ``train_state`` and bumps
+the learner epoch, :meth:`~ConcurrentTrainer.apply_hparams` changes the
+live lr and the IS beta.
+
+Not ported yet: the sharded plan.  Where the JAX trainer splits
 a PRNG key per dispatch, this one draws the PER sample's uniforms from a
 ``torch.Generator`` on the learner's device, on the learner thread, in
 the same order on both paths.
@@ -92,11 +102,17 @@ from apex_tpu_torch.models.dueling import (DuelingDQN, host_params,
 from apex_tpu_torch.obs import spans as obs_spans
 from apex_tpu_torch.obs.trace import get_ring, set_process_label
 from apex_tpu_torch.ops.losses import make_optimizer
+from apex_tpu_torch.population import controller as population_ctl
+from apex_tpu_torch.population.controller import PopulationStat
 from apex_tpu_torch.ops.tree import stratified_offsets
 from apex_tpu_torch.replay.base import check_hbm_budget
 from apex_tpu_torch.replay.frame_chunks import FRAME_MARGIN
 from apex_tpu_torch.replay.frame_pool import FramePoolReplay
 from apex_tpu_torch.runtime.codec import KeyframeRequest
+from apex_tpu_torch.serving import deploy as serving_deploy
+from apex_tpu_torch.serving.deploy import ServingStat
+from apex_tpu_torch.tenancy import scheduler as tenancy_sched
+from apex_tpu_torch.tenancy.scheduler import TenancyStat
 from apex_tpu_torch.training.checkpoint import (CheckpointableTrainer,
                                                 Checkpointer,
                                                 run_policy_episodes)
@@ -165,6 +181,17 @@ class ConcurrentTrainer(CheckpointableTrainer):
     floor_relaxes = 0               # times the reaction engaged
     # the learner-side span join; persists across train() calls
     _obs = None
+    # the controllers' latest snapshots off the stat channel (serve-ctl,
+    # tenant-ctl, pbt-ctl): the serving, tenancy and population sections
+    serving_state: dict | None = None
+    tenancy_state: dict | None = None
+    population_state: dict | None = None
+    # the learner's ctl surface: the status thread enqueues, the trainer
+    # thread applies at its health tick; the applied commands' record and
+    # the hyperparameters applied so far
+    _ctl_queue = None
+    _population_ctl: dict | None = None
+    hparams_live: dict | None = None
 
     def _init_loop(self, train_ratio, min_train_ratio, publish_min_seconds,
                    respawn_workers, logdir, verbose, checkpoint_dir) -> None:
@@ -459,10 +486,15 @@ class ConcurrentTrainer(CheckpointableTrainer):
                 or self._fleet_status is not None):
             return
         from apex_tpu_torch.fleet.registry import FleetStatusServer
+        if self._ctl_queue is None:
+            # built before the server's thread starts (its ctl hook runs
+            # there); bounded, so a runaway controller parks 8 commands
+            import queue as queue_lib
+            self._ctl_queue = queue_lib.Queue(maxsize=8)
         try:
             self._fleet_status = FleetStatusServer(
                 self.cfg.comms, self.fleet, metrics_fn=self._metrics_text,
-                snapshot_fn=self.fleet_summary)
+                snapshot_fn=self.fleet_summary, ctl_fn=self._enqueue_ctl)
         except Exception as exc:
             print(f"fleet: no status server on port "
                   f"{self.cfg.comms.status_port} ({exc!r})", flush=True)
@@ -473,8 +505,8 @@ class ConcurrentTrainer(CheckpointableTrainer):
         """One health tick (``apex.py:567-602``): respawn crashed workers
         on their slots, run the registry's machine (a socket pool's
         message arrivals count as liveness), log its transitions and
-        ``fleet_*`` scalars, judge the SLOs, react to a dead actor fleet
-        and dump ``fleet_summary.json``."""
+        ``fleet_*`` scalars, judge the SLOs, react to a dead actor fleet,
+        apply the parked ctl commands and dump ``fleet_summary.json``."""
         pool = self.pool
         if hasattr(pool, "dead_workers"):
             for dead in pool.dead_workers():
@@ -496,17 +528,27 @@ class ConcurrentTrainer(CheckpointableTrainer):
         # actor-capacity alert this sample just advanced
         self._slo_tick(steps)
         self._react_to_fleet(steps)
+        # the ctl commands apply here, on the trainer thread: the status
+        # thread only enqueued them
+        self._drain_ctl(steps)
         self._dump_fleet_summary()
 
     def _drain_stats(self, steps: int) -> None:
-        """Heartbeats into the registry, timing stats into
-        ``actor_timing`` and the scalar log, episode stats into the
-        episode log; a keyframe request forces the pool's next publish
-        dense.  Count the drops the stats carry (``apex.py:604-628``)."""
+        """Heartbeats into the registry, the controllers' snapshots into
+        their sections, timing stats into ``actor_timing`` and the scalar
+        log, episode stats into the episode log; a keyframe request forces
+        the pool's next publish dense.  Count the drops the stats carry
+        (``apex.py:604-628``)."""
         for stat in self.pool.poll_stats():
             self.stat_drops += getattr(stat, "dropped_stats", 0)
             if isinstance(stat, Heartbeat):
                 self.fleet.observe(stat)
+            elif isinstance(stat, ServingStat):
+                self.serving_state = dict(stat.snapshot)
+            elif isinstance(stat, TenancyStat):
+                self.tenancy_state = dict(stat.snapshot)
+            elif isinstance(stat, PopulationStat):
+                self.population_state = dict(stat.snapshot)
             elif isinstance(stat, KeyframeRequest):
                 force = getattr(self.pool, "force_keyframe", None)
                 if force is not None:
@@ -611,6 +653,16 @@ class ConcurrentTrainer(CheckpointableTrainer):
                 self._slo.snapshot())
             gauges.update(slo_gauges)
             labeled.update(slo_labeled)
+        # the controllers' row families: apex_serving_*, apex_tenancy_*,
+        # apex_population_*
+        for state, sections in (
+                (self.serving_state, serving_deploy.prometheus_sections),
+                (self.tenancy_state, tenancy_sched.prometheus_sections),
+                (self.population_state, population_ctl.prometheus_sections)):
+            if state is not None:
+                more_gauges, more_labeled = sections(state)
+                gauges.update(more_gauges)
+                labeled.update(more_labeled)
         return obs_metrics.render(gauges=gauges, counters=counters,
                                   histograms=histograms, labeled=labeled)
 
@@ -628,7 +680,9 @@ class ConcurrentTrainer(CheckpointableTrainer):
                         if self._obs is not None else {}),
             "rates": {"steps_per_s": self.steps_rate.rate,
                       "frames_per_s": self.frames_rate.rate},
-            "serving": {},
+            # the serving_rollbacks objective reads the controller's
+            # reported machine
+            "serving": self.serving_state or {},
         }
 
     def _slo_tick(self, steps: int) -> None:
@@ -669,8 +723,14 @@ class ConcurrentTrainer(CheckpointableTrainer):
                                  if plane is not None else None)
         admitted = getattr(pool, "rejoin_admitted", None)
         m["barrier_admitted"] = admitted() if callable(admitted) else 0
+        # the PBT controller's donor path, the hyperparameters applied live
+        # and the applied ctl commands' record
         m["checkpoint_latest"] = (self.checkpointer.latest_path()
                                   if self.checkpointer is not None else None)
+        if self.hparams_live:
+            m["hparams_live"] = dict(self.hparams_live)
+        if self._population_ctl is not None:
+            m["population_ctl"] = dict(self._population_ctl)
         withheld = getattr(pool, "acks_withheld", None)
         m["acks_withheld"] = withheld() if callable(withheld) else 0
         wire_fn = getattr(pool, "wire_summary", None)
@@ -688,6 +748,11 @@ class ConcurrentTrainer(CheckpointableTrainer):
             snap["latency"] = lat
         if self._slo is not None:
             snap["slo"] = self._slo.snapshot()
+        for key, state in (("serving", self.serving_state),
+                           ("tenancy", self.tenancy_state),
+                           ("population", self.population_state)):
+            if state is not None:
+                snap[key] = state
         client = self.replay_client
         if client is not None:
             m["replay_service"] = {
@@ -759,6 +824,144 @@ class ConcurrentTrainer(CheckpointableTrainer):
         self.log.scalars({"fleet_dead_actor_frac": frac,
                           "fleet_floor_relaxed":
                               float(self._floor_relaxed)}, steps)
+
+    # -- the learner's ctl surface (apex.py:981-1150) ----------------------
+
+    def _enqueue_ctl(self, cmd: dict) -> dict:
+        """The status thread's half: enqueue only (learner state is
+        touched by the trainer thread alone)."""
+        import queue as queue_lib
+        q = self._ctl_queue
+        if q is None:
+            return {"accepted": False, "error": "no ctl queue"}
+        try:
+            q.put_nowait(dict(cmd))
+        except queue_lib.Full:
+            return {"accepted": False, "error": "ctl queue full"}
+        return {"accepted": True, "pending": q.qsize()}
+
+    def _drain_ctl(self, steps: int) -> None:
+        """The trainer thread's half: apply every parked command."""
+        import queue as queue_lib
+        q = self._ctl_queue
+        if q is None:
+            return
+        while True:
+            try:
+                cmd = q.get_nowait()
+            except queue_lib.Empty:
+                return
+            self._apply_ctl(cmd, steps)
+
+    def _apply_ctl(self, cmd: dict, steps: int) -> None:
+        """One PBT command.  ``exploit``: the donor checkpoint's weights
+        (:meth:`restore_weights`, the epoch bumped), the fleet re-fenced on
+        the new epoch, the explore half's hyperparameters and a publish;
+        ``hparams``: the hyperparameters alone.  A failed copy is counted
+        in the record and printed; the learner keeps training."""
+        op = str(cmd.get("op") or "")
+        rec = self._population_ctl or {"applied": 0, "exploits": 0,
+                                       "explores": 0, "errors": 0}
+        event: dict = {"op": op, "donor": cmd.get("donor"), "step": steps}
+        if op == "exploit":
+            import os
+            path = str(cmd.get("restore_from") or "")
+            if (path and not os.path.exists(path)
+                    and os.path.isdir(os.path.dirname(path))):
+                # the donor's Checkpointer keeps its newest few files and
+                # the command waited up to one health tick: a pruned path
+                # means a newer checkpoint of the same lineage exists
+                newer = Checkpointer(os.path.dirname(path)).latest_path()
+                if newer is not None:
+                    path = newer
+            try:
+                self.restore_weights(path)
+            except Exception as exc:
+                rec["errors"] += 1
+                event["error"] = f"{type(exc).__name__}: {exc}"
+                rec["last"] = event
+                self._population_ctl = rec
+                print(f"population: exploit failed ({event['error']})",
+                      flush=True)
+                return
+            rec["exploits"] += 1
+            event["restored_from"] = path
+            event["learner_epoch"] = self.learner_epoch
+            # re-fence on the new epoch, then publish the copied weights:
+            # actors and infer shards fence out the pre-copy life's
+            # params, the replay shards its write-backs
+            set_epoch = getattr(self.pool, "set_learner_epoch", None)
+            if set_epoch is not None:
+                set_epoch(self.learner_epoch)
+            if self.replay_client is not None:
+                self.replay_client.learner_epoch = self.learner_epoch
+            applied = self.apply_hparams(cmd.get("hparams") or {})
+            if applied or cmd.get("hparams"):
+                rec["explores"] += 1
+                event["applied"] = applied
+            self._publish()
+        elif op == "hparams":
+            event["applied"] = self.apply_hparams(cmd.get("hparams") or {})
+            rec["explores"] += 1
+        else:
+            rec["errors"] += 1
+            event["error"] = f"unknown op {op!r}"
+        rec["applied"] += 1
+        rec["last"] = event
+        self._population_ctl = rec
+        print(f"population: applied {op} (donor="
+              f"{cmd.get('donor') or '-'}, epoch={self.learner_epoch})",
+              flush=True)
+        self.log.scalars({"population_ctl_applied": rec["applied"]}, steps)
+
+    def restore_weights(self, path: str) -> dict:
+        """The PBT exploit's weight copy: impose the donor checkpoint's
+        ``train_state`` (online and target weights, the optimizer's moments
+        and counts, the step) onto this live learner, in place on its
+        device; replay, the generator and the host counters stay as they
+        are, and the learner epoch goes up by one, so the pre-copy life's
+        params and write-backs are fenced out as a restart's would be.
+        Returns the donor checkpoint's metadata."""
+        from apex_tpu_torch.training.checkpoint import (_impose,
+                                                        _set_numbers,
+                                                        load_raw)
+        raw, meta = load_raw(path)
+        ts = self.train_state
+        saved = _impose(self._bundle()["train_state"], raw["train_state"],
+                        "train_state")
+        _set_numbers(ts.opt_state, saved["opt_state"])
+        ts.step = saved["step"]
+        self.learner_epoch += 1
+        return meta
+
+    def apply_hparams(self, h: dict) -> dict:
+        """The live half of a lineage's hyperparameter vector
+        (:data:`~apex_tpu_torch.population.lineage.LIVE_HPARAMS`): ``lr``
+        swaps the optimizer's base rate (DQN core only, as in the
+        reference), keeping its moments and count, so the StepLR decay
+        already taken still holds; ``prio_beta`` moves the IS-weight
+        anneal the next :meth:`_beta` reads.  Every field given is
+        recorded in ``hparams_live``; the acting-side ones apply to the
+        lineage's next workers.  Returns the fields applied live."""
+        import dataclasses
+        applied: dict = {}
+        lr = h.get("lr")
+        if lr is not None and type(self.core) is LearnerCore:
+            self.core = dataclasses.replace(
+                self.core, optimizer=dataclasses.replace(
+                    self.core.optimizer, lr=float(lr)))
+            self.cfg = self.cfg.replace(learner=dataclasses.replace(
+                self.cfg.learner, lr=float(lr)))
+            applied["lr"] = float(lr)
+        beta = h.get("prio_beta")
+        if beta is not None:
+            self.cfg = self.cfg.replace(replay=dataclasses.replace(
+                self.cfg.replay, beta=float(beta)))
+            applied["prio_beta"] = float(beta)
+        recorded = {k: v for k, v in h.items() if v is not None}
+        if recorded:
+            self.hparams_live = {**(self.hparams_live or {}), **recorded}
+        return applied
 
     # -- dispatch ----------------------------------------------------------
 

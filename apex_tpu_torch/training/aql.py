@@ -26,8 +26,10 @@ Where the JAX steps take PRNG keys, the PER sample takes per-stratum
 uniforms and the NoisyNet and acting draws come from an
 :class:`~apex_tpu_torch.models.aql.AQLDraws` over the learner's
 ``torch.Generator``.  Entry points default to ``"cuda"``.  Not ported: the
-sharded learner (the port's config has no mesh), the socket roles and
-remote policy.
+sharded learner (the port's config has no mesh, ROADMAP item 4).  The
+learner role builds :class:`AQLApexTrainer` over sockets
+(:func:`apex_tpu_torch.runtime.roles.run_learner`); remote policy serves
+the DQN family only, as in the reference.
 """
 
 from __future__ import annotations

@@ -21,8 +21,10 @@ replay items):
 
 As in the other drivers, PRNG keys become ``torch.Generator`` draws on the
 learner's device, and entry points default to ``"cuda"``.  Not ported:
-the sharded learner (``mesh_shape`` > 1), the socket roles and remote
-policy.
+the sharded learner (``mesh_shape`` > 1, ROADMAP item 4).  The learner
+role builds :class:`R2D2ApexTrainer` over sockets
+(:func:`apex_tpu_torch.runtime.roles.run_learner`); remote policy serves
+the DQN family only, as in the reference.
 """
 
 from __future__ import annotations

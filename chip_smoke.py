@@ -77,7 +77,7 @@ Phases, each of which exits nonzero on failure before any result line:
    launches per env step under the profiler, env frames/s over 8 warm
    dispatches.  ``ApexTrainer.train`` over ``AnakinPool`` for 100 steps,
    pipelined and serial; ``FusedApexTrainer.train`` (4 macro steps per
-   dispatch, one learner step each) for 64 steps; each checks one
+   dispatch, one learner step each) for 16 steps; each checks one
    ``gather_stacks`` launch per learner step, priority write-backs, the
    sum tree and finite metrics, and prints learner steps/s, env frames/s,
    ms per engine dispatch and peak memory beside phase 5's.  Last, a
@@ -174,6 +174,27 @@ Phases, each of which exits nonzero on failure before any result line:
    the stale write-backs, applies none and keeps its root equal to its
    leaves.  14d (``fleet_profile``): ``--role learner --profile-dir``:
    the trace names the gather kernel once per learner step.
+15. control -- the control planes at phase 12a's geometry.  15-ref: an
+   ``InferServer`` at full width through freeze, canary, rollback and
+   promote with ``infer_device_params`` off and on (the rollback gives
+   back the incumbent's tensors and replies bit for bit), and
+   ``restore_weights`` of a donor's checkpoint into a live learner (its
+   ``train_state`` bit-equal, its epoch up by one, its next update on a
+   fixed batch equal to the donor's).  15a (``ctl_serve``): the learner
+   role, 2 ``--role infer`` shards, 4 ``--remote-policy`` actors, 1
+   evaluator and ``--role serve-ctl``: one version PROMOTED, then a
+   second evaluator under a chaos ``score_bias`` breaches ``eval_score``
+   and the next version is ROLLED_BACK, shard 0 pinned back on the
+   weights it served before the canary.  15b (``ctl_tenant``): tenants
+   ``t0`` and ``rally`` (``ApexRally-v0``, its learner through the CLI)
+   on 2 shared replay shards with a partition each and rally's quota
+   biting, and ``--role tenant-ctl``: rally's learner stopped, rally
+   EVICTED and t0's band grown to both shards while t0 trains.  15c
+   (``ctl_pbt``): lineages ``la`` (CLI) and ``lb`` (in the script) and
+   ``--role pbt-ctl``: lb, ranked last by a chaos ``score_bias``, takes
+   an exploit from la, its ``train_state`` bit-equal to la's checkpoint,
+   its epoch on the param channel, the mutated lr live.  Every role exits
+   0 and no port stays bound.
 
 Then it prints the card's name and power limit, one ``{"kernels": ...}``
 line (``launches`` counts each kernel's main path: phase 5's pipelined
@@ -187,7 +208,9 @@ and ``remote_codec`` and phase 13's ``replay_service`` (the learner's),
 ``remote_policy``, ``loadgen``, ``ondevice_socket`` and
 ``fused_socket``, and phase 14's ``fleet_spans``, ``fleet_chaos``,
 ``fleet_trace``, ``fleet_trace_nospans``, ``fleet_shards``,
-``fleet_shards_shards`` and ``fleet_profile``) and, last,
+``fleet_shards_shards`` and ``fleet_profile``, and phase 15's
+``ctl_serve``, ``ctl_tenant`` (the learner's), ``ctl_tenant_shards``
+(the shard processes' own) and ``ctl_pbt``) and, last,
 ``{"ok": true, "device": {...}}``.  It needs one card
 and exits nonzero without one.  ``--profile DIR`` also traces a few more
 fused steps of phases 4, 9 and 11 (continuous and pixels) with
@@ -1600,7 +1623,8 @@ ENV_STEPS = 512              # batched env steps held card against CPU
 REFERENCE_DISPATCHES = 2     # engine dispatches held card against CPU
 ENGINE_DISPATCHES = 8        # warm engine dispatches timed per env
 PROFILE_T = 8                # steps of the dispatch traced for launches
-FUSED_STEPS = 64             # learner steps of FusedApexTrainer.train
+FUSED_STEPS = 16             # learner steps of FusedApexTrainer.train (from
+#                              64, to bound the script's time)
 
 
 def _ondevice_cfg(env_id: str, pipelined: bool = True, small: bool = False):
@@ -1950,7 +1974,7 @@ def anakin_train_phase(dev, gather, pipelined: bool) -> dict:
 def fused_train_phase(dev, gather) -> dict:
     """``FusedApexTrainer.train`` at phase 5's geometry: 32 lanes x T 64
     per macro step, 4 macro steps per dispatch, one learner step per
-    macro step once warm, for 64 learner steps."""
+    macro step once warm, for ``FUSED_STEPS`` learner steps."""
     from apex_tpu_torch.ondevice.fused import FusedApexTrainer
 
     what = "fused train"
@@ -3022,6 +3046,8 @@ LOADGEN_LANES = 32           # the loadgen engine's lanes
 SOCKET_STEPS = 20            # learner steps of each 13d run, at least
 SOCKET_T = 16                # 13d's rollout_len
 FALLBACK_SHARE = 0.10        # 13b: fallbacks after the first reply, at most
+#: learner steps/s of 13a and 13b, printed beside phase 15's
+RATES: dict = {}
 
 
 def _port_block(n: int) -> int:
@@ -3326,6 +3352,7 @@ def replay_service_run(dev, gather, p12a: dict) -> dict:
         f"learner gather launches {launches}")
     shard_launches = sum(st["gather_launches"]["gather_stacks"]
                          for st in shards)
+    RATES[what] = trainer.steps_rate.rate
     return dict(launches=launches, shard_launches=shard_launches)
 
 
@@ -3409,6 +3436,7 @@ def remote_policy_run(dev, gather, p12a: dict) -> dict:
         f"{p12a['steps_per_s']:.3f}; peak memory learner "
         f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB; gather "
         f"launches {launches}")
+    RATES[what] = trainer.steps_rate.rate
     return dict(launches=launches)
 
 
@@ -4167,6 +4195,873 @@ def fleet_phase(dev, gather, msgs: list, p12a: dict) -> dict:
             "fleet_profile": prof["launches"]}
 
 
+
+# -- phase 15: the control planes ------------------------------------------
+
+CTL_INTERVAL = 1.0           # the controllers' control round, s (from 5)
+SERVE_SOAK = 60.0            # 15a's canary soak, s (the default)
+SERVE_VERSION_EVERY = 8      # 15a: publishes between deployments
+SERVE_PUBLISH_INTERVAL = 5   # 15a's learner steps per publish (from 25)
+SERVE_SECONDS = 200.0        # 15a's wall-clock bound
+EVAL_SCORE_BAR = -50.0       # 15a: the eval_score objective's bar
+SCORE_BIAS = -100.0          # the chaos score bias of the bad evaluators
+SERVE_SLO = {**SLO_KNOBS, "APEX_SLO_EVAL_SCORE": str(EVAL_SCORE_BAR),
+             # the actors' infer round trip on this loaded host is not
+             # what 15a judges
+             "APEX_SLO_INFER_RT_MS": "5000"}
+TENANT_CAPACITY = 2 ** 18    # 15b: each shard partition (from 2^19)
+TENANT_QUOTA = 2 ** 14       # 15b: rally's quota per shard (from 2^16)
+TENANT_ACTORS = 2            # 15b: actor processes per tenant
+TENANT_DEAD_S = 3.0          # 15b: tenant-ctl's eviction silence (from 15)
+TENANT_AFTER_STEPS = 20      # 15b: t0's steps after the eviction
+TENANT_SECONDS = 200.0
+PBT_CAPACITY = 2 ** 16       # 15c: each lineage's replay (checkpoints)
+PBT_SAVE_EVERY = 20          # 15c: la's checkpoint interval, steps
+PBT_DECIDE = 5.0             # 15c: pbt-ctl's decision period (from 30)
+PBT_AFTER_STEPS = 10         # 15c: lb's steps after the exploit
+PBT_SECONDS = 200.0
+
+
+def _retire(roles, name: str) -> int | None:
+    """SIGTERM one role mid-run and wait for it; it leaves the set
+    :func:`_stop_roles` stops (its log stays).  Returns its exit code,
+    None if it had to be killed."""
+    entry = next(e for e in roles.procs if e[0] == name)
+    _, proc, out = entry
+    proc.terminate()
+    try:
+        code = proc.wait(timeout=ROLE_JOIN_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(timeout=10)
+        code = None
+    roles.procs.remove(entry)
+    out.close()
+    return code
+
+
+def _snapshot_line(roles, name: str) -> dict | None:
+    """The ``<role>: snapshot {...}`` line a controller prints as it
+    stops, parsed."""
+    with open(os.path.join(roles.tmp.name, f"{name}.log"), "rb") as f:
+        text = f.read().decode(errors="replace")
+    for line in reversed(text.splitlines()):
+        if ": snapshot {" in line:
+            return json.loads(line.split(": snapshot ", 1)[1])
+    return None
+
+
+def _env_set(values: dict) -> dict:
+    """Set ``values`` in this process's environment; returns what to
+    restore with :func:`_env_restore`."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    return saved
+
+
+def _env_restore(saved: dict) -> None:
+    for k, v in saved.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+
+
+def control_reference_phase(dev, gather, msgs: list) -> None:
+    """15-ref: the infer server's version gate and ``restore_weights`` on
+    the card.  (a) an ``InferServer`` at full width goes freeze -> canary
+    (the candidate loaded) -> rollback, with ``infer_device_params`` off
+    and on: its model's tensors then equal the incumbent's, bit for bit,
+    and its replies are the incumbent's; promote opens the gate.  (b) a
+    live learner takes a donor's checkpoint with ``restore_weights``:
+    its ``train_state`` equals the donor's, bit for bit, its epoch goes up
+    by one, its replay and generator stay, and its next update on one
+    fixed batch equals the donor's (deterministic cuDNN)."""
+    from apex_tpu_torch.models.dueling import DuelingDQN, host_params
+    from apex_tpu_torch.training.apex import dqn_env_specs
+
+    what = "ctl_ref"
+    cfg = _service_cfg(_free_ports(3))
+    spec = dqn_env_specs(cfg)[0]
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    weights = [host_params(DuelingDQN(
+        **spec, generator=torch.Generator().manual_seed(SEED + i)))
+        for i in (1, 2)]
+    rng = np.random.default_rng(SEED)
+    obs = rng.integers(0, 256, (16,) + tuple(spec["obs_shape"]),
+                       dtype=np.uint8)
+    request = {"rid": 1, "obs": obs, "eps": np.zeros(16, np.float32),
+               "seed": 5, "group": 0}
+    try:
+        _gate_reference(dev, cfg, weights, request, what)
+        _restore_reference(dev, msgs, what)
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags
+        torch.cuda.empty_cache()
+
+
+def _gate_reference(dev, cfg, weights, request, what) -> None:
+    """15-ref (a), the infer server's gate on the card."""
+    import dataclasses
+
+    from apex_tpu_torch.infer_service.service import (InferServer,
+                                                      dqn_policy_model)
+
+    for device_params in (False, True):
+        comms = dataclasses.replace(cfg.comms, infer_port=_free_ports(1)[0],
+                                    infer_device_params=device_params)
+        model = dqn_policy_model(cfg, dev)
+        server = InferServer(comms, model, heartbeat=False,
+                             obs_shape=model.obs_shape)
+        replies = []
+        server._reply = lambda ident, msg: replies.append(msg)
+        try:
+            incumbent = {k: torch.as_tensor(v).to(dev)
+                         for k, v in weights[0].items()}
+            server.set_params(5, weights[0], epoch=1)
+            server._dispatch([(b"x", dict(request), 0.0)])
+            want_q = replies[-1][1]["q"]
+            st = server.apply_ctl({"cmd": "freeze"})
+            check(st["pinned"] and st["has_incumbent"],
+                  f"{what}: freeze {st}")
+            server.set_params(9, weights[1], epoch=1)     # held
+            check(server.held == 1 and server.param_version == 5,
+                  f"{what}: a frozen shard installed {server.ctl_state()}")
+            server.apply_ctl({"cmd": "canary"})
+            server.set_params(9, weights[1], epoch=1)     # tracked
+            server._dispatch([(b"x", dict(request), 0.0)])
+            check(replies[-1][1]["pv"] == 9 and not all(
+                torch.equal(model.state_dict()[k], incumbent[k])
+                for k in incumbent),
+                f"{what}: the canary never served the candidate")
+            st = server.apply_ctl({"cmd": "rollback", "epoch": 1,
+                                   "version": 5})
+            torch.cuda.synchronize()
+            check(all(torch.equal(model.state_dict()[k], incumbent[k])
+                      for k in incumbent) and st["version"] == 5
+                  and st["pinned"] and server.gate_rollbacks == 1,
+                  f"{what}: rollback did not restore the incumbent "
+                  f"bit for bit ({st})")
+            server._dispatch([(b"x", dict(request), 0.0)])
+            check(replies[-1][1]["pv"] == 5 and np.array_equal(
+                replies[-1][1]["q"], want_q),
+                f"{what}: replies after rollback are not the incumbent's")
+            server.set_params(12, weights[1], epoch=1)
+            check(server.held == 2, f"{what}: a rolled-back shard installed")
+            server.apply_ctl({"cmd": "promote"})
+            server.set_params(12, weights[1], epoch=1)
+            check(server.param_version == 12 and not server.ctl_state()[
+                "pinned"], f"{what}: promote left {server.ctl_state()}")
+        finally:
+            server.close()
+        log(f"{what}: infer gate with infer_device_params={device_params}: "
+            f"freeze held the candidate, canary served it, rollback gave "
+            f"back the incumbent's {len(incumbent)} tensors bit for bit "
+            f"and its replies, promote opened the gate")
+
+
+def _restore_reference(dev, msgs, what) -> None:
+    """15-ref (b), ``restore_weights`` on the card."""
+    import dataclasses
+    import tempfile
+
+    from apex_tpu_torch.training.apex import ApexTrainer
+
+    with tempfile.TemporaryDirectory(prefix="apex-pbt-ref-") as tmp:
+        donor = ApexTrainer(_full_width_cfg(True, CHECKPOINT_CAPACITY),
+                            pool=ListPool([]), device=dev,
+                            checkpoint_dir=tmp)
+        for msg in msgs[:WARMUP_CHUNKS + 4]:
+            donor.consume([msg])
+        path = donor.save_checkpoint()
+        cfg_b = _full_width_cfg(True, CHECKPOINT_CAPACITY)
+        cfg_b = cfg_b.replace(env=dataclasses.replace(cfg_b.env,
+                                                      seed=SEED + 5))
+        live = ApexTrainer(cfg_b, pool=ListPool([]), device=dev)
+        for msg in msgs[:WARMUP_CHUNKS + 2]:
+            live.consume([msg])
+        replay, gen = live.replay_state, live.generator.get_state()
+        epoch, steps = live.learner_epoch, live.steps
+        t0 = time.perf_counter()
+        live.restore_weights(path)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        check(_same(live.train_state.opt_state,
+                    donor.train_state.opt_state)
+              and live.train_state.step == donor.train_state.step
+              and all(_same(a.state_dict(), b.state_dict()) for a, b in (
+                  (live.train_state.params, donor.train_state.params),
+                  (live.train_state.target_params,
+                   donor.train_state.target_params))),
+              f"{what}: restore_weights did not impose the donor's "
+              f"train_state bit for bit")
+        check(live.learner_epoch == epoch + 1 and live.steps == steps
+              and live.replay_state is replay and torch.equal(
+                  live.generator.get_state(), gen),
+              f"{what}: restore_weights moved more than the train_state")
+        offsets = torch.rand(BATCH, generator=torch.Generator(
+            device=dev).manual_seed(SEED), device=dev)
+        batch, weights_is, _ = donor.replay.sample(
+            donor.replay_state, offsets, 0.4)
+        out = []
+        for t in (donor, live):
+            _, _, m = t.core.update_from_batch(t.train_state, batch,
+                                               weights_is)
+            out.append({k: v.item() for k, v in m.items()})
+        check(out[0] == out[1] and all(
+            _same(a.state_dict(), b.state_dict()) for a, b in (
+                (live.train_state.params, donor.train_state.params),
+                (live.train_state.target_params,
+                 donor.train_state.target_params)))
+              and _same(live.train_state.opt_state,
+                        donor.train_state.opt_state),
+              f"{what}: the next update differs ({out})")
+    log(f"{what}: restore_weights imposed the donor's train_state bit "
+        f"for bit in {restore_s:.3f} s (epoch {epoch} -> "
+        f"{live.learner_epoch}, replay and generator kept); the next "
+        f"update on one fixed batch equal on both: {out[0]}")
+
+
+def serve_ctl_run(dev, gather) -> dict:
+    """15a: the learner role in this process at 12a's geometry, 2
+    ``--role infer`` shards on the card, 4 ``--remote-policy`` actors x 8
+    envs, 1 evaluator and ``--role serve-ctl`` (canary fraction 0.5),
+    through the CLI.  The first new version is canaried and PROMOTED;
+    then a second evaluator starts under a chaos ``score_bias``, the
+    ``eval_score`` objective breaches during the next canary, and that
+    version is ROLLED_BACK: shard 0 loads back the weights it served
+    before the canary and pins them; the rejected version is never
+    canaried again."""
+    import threading
+
+    from apex_tpu_torch.training import apex as apex_module
+
+    what = "ctl_serve"
+    ports = _free_ports(4)
+    base = _port_block(2)
+    cfg = _service_cfg(ports[:3], infer_port=base, infer_shards=2,
+                       status_port=ports[3])
+    import dataclasses
+    cfg = cfg.replace(learner=dataclasses.replace(
+        cfg.learner, publish_interval=SERVE_PUBLISH_INTERVAL))
+    shared = _role_argv(ports[:3], "--infer-port", str(base),
+                        "--infer-shards", "2")
+    published: dict[int, float] = {}
+    snaps: list = []                  # (wall, serving snapshot) as it moves
+    state = {"stop": False, "bad": False}
+    real = (apex_module.ConcurrentTrainer._publish,
+            apex_module.ConcurrentTrainer._drain_stats)
+
+    def publish(self):
+        real[0](self)
+        published[self.param_version] = time.time()
+
+    def drain(self, steps):
+        real[1](self, steps)
+        srv = self.serving_state
+        if srv is not None and (not snaps or snaps[-1][1] is not srv):
+            snaps.append((time.time(), srv))
+        if state["stop"]:
+            self.request_stop()
+
+    def edges(snap):
+        return [(e["from"], e["to"], e["version"])
+                for e in snap.get("timeline", [])]
+
+    def watch(roles):
+        deadline = time.monotonic() + SERVE_SECONDS
+        while time.monotonic() < deadline and not state["stop"]:
+            time.sleep(0.25)
+            if not snaps:
+                continue
+            snap = snaps[-1][1]
+            ed = edges(snap)
+            if not state["bad"] and any(e[1] == "PROMOTED" for e in ed):
+                state["bad"] = True
+                roles.launch("evaluator-bad", [
+                    "--role", "evaluator", "--actor-id", "1", *shared,
+                    *_device_flag(dev)], {
+                        "CHAOS_SEED": str(SEED), "CHAOS_SPEC": json.dumps(
+                            {"score_bias": {"evaluator-1": {
+                                "after_s": 0, "delta": SCORE_BIAS}}})})
+            if rolled_back(snap)[0]:
+                state["stop"] = True
+
+    def rolled_back(snap):
+        """Shard 0 after the first rollback: pinned on a version between
+        the incumbent and the rejected candidate, with a restore that
+        changed its model.  Returns (ok, rejected version)."""
+        rb = next((e for e in snap.get("timeline", [])
+                   if e["to"] == "ROLLED_BACK"), None)
+        shard0 = (snap.get("shards") or {}).get("0") or {}
+        if rb is None or not snap.get("incumbent"):
+            return False, None
+        rejected = int(rb["version"].split(":")[1])
+        ok = (shard0.get("pinned") and shard0.get("rollbacks", 0) >= 1
+              and snap["incumbent"]["version"] <= shard0.get("version", -1)
+              < rejected)
+        return bool(ok), rejected
+
+    roles = RoleProcesses()
+    saved = _env_set(SERVE_SLO)
+    apex_module.ConcurrentTrainer._publish = publish
+    apex_module.ConcurrentTrainer._drain_stats = drain
+    watcher = threading.Thread(target=watch, args=(roles,), daemon=True)
+    try:
+        for s in range(2):
+            roles.launch(f"infer-{s}", ["--role", "infer",
+                                        "--infer-shard-id", str(s), *shared,
+                                        *_device_flag(dev)], {})
+        for s in range(2):
+            roles.wait_for(f"infer-{s}", f"infer-{s}: serving on port",
+                           ROLE_JOIN_S)
+        for i in range(N_ACTORS):
+            roles.launch(f"actor-{i}", ["--role", "actor", "--remote-policy",
+                                        *shared], _actor_env(i))
+        roles.launch("evaluator", ["--role", "evaluator", *shared,
+                                   *_device_flag(dev)], {})
+        roles.launch("serve-ctl", [
+            "--role", "serve-ctl", *shared, "--learner-ip", "127.0.0.1",
+            "--status-port", str(ports[3]), "--serve-canary-frac", "0.5",
+            "--serve-soak", str(SERVE_SOAK), "--serve-version-every",
+            str(SERVE_VERSION_EVERY), "--serve-interval", str(CTL_INTERVAL),
+            "--max-seconds", str(SERVE_SECONDS + 60)], {})
+        log(f"{what}: run_learner on {dev}, 2 infer shards (ports {base}, "
+            f"{base + 1}) on {dev}, {N_ACTORS} --remote-policy actors x "
+            f"{ENVS_PER_ACTOR} envs, 1 evaluator and serve-ctl (canary "
+            f"0.5, soak {SERVE_SOAK} s, a deployment every "
+            f"{SERVE_VERSION_EVERY} publishes, publish every "
+            f"{SERVE_PUBLISH_INTERVAL} steps, tick {CTL_INTERVAL} s) "
+            f"through the CLI; eval_score bar {EVAL_SCORE_BAR}")
+        watcher.start()
+        trainer, wall, launches = _learner_run(
+            dev, gather, roles, what, cfg, n_peers=N_ACTORS + 1,
+            total_steps=10 ** 6)
+        state["stop"] = True
+        watcher.join(timeout=30)
+        codes = _stop_roles(roles, what)
+        servers = [roles.stats(f"infer-{s}") for s in range(2)]
+        final = _snapshot_line(roles, "serve-ctl")
+    finally:
+        (apex_module.ConcurrentTrainer._publish,
+         apex_module.ConcurrentTrainer._drain_stats) = real
+        _env_restore(saved)
+        roles.close()
+    bound = _still_bound(ports + [base, base + 1])
+    check(not bound, f"{what}: ports {bound} still bound after the run")
+    check(trainer.serving_state is not None and final is not None,
+          f"{what}: no serving snapshot (learner {trainer.serving_state}, "
+          f"controller {final})")
+    snap = trainer.serving_state
+    log(f"{what}: {trainer.steps} learner steps in {wall:.3f} s; "
+        f"{trainer.param_version} publishes; timeline "
+        f"{[(e['t_s'], e['from'], e['to'], e['version'], e['reason']) for e in snap['timeline']]}; "
+        f"shards {snap['shards']}")
+    ed = [(e["from"], e["to"]) for e in snap["timeline"]]
+    check(("CANARY", "PROMOTED") in ed and ("CANARY", "ROLLED_BACK") in ed
+          and ed.index(("CANARY", "PROMOTED"))
+          < ed.index(("CANARY", "ROLLED_BACK")),
+          f"{what}: timeline {snap['timeline']}")
+    first_rb = next(e for e in snap["timeline"] if e["to"] == "ROLLED_BACK")
+    check("eval_score" in first_rb["reason"],
+          f"{what}: rolled back for {first_rb['reason']}")
+    rejected = first_rb["version"]
+    canaried = [e["version"] for e in snap["timeline"]
+                if e["to"] == "CANARY"]
+    check(canaried.count(rejected) <= 1,
+          f"{what}: the rejected {rejected} was canaried again {canaried}")
+    ok, _ = rolled_back(snap)
+    shard0 = snap["shards"]["0"]
+    check(ok and servers[0] is not None
+          and servers[0]["serve_rollbacks"] >= 1
+          and servers[0]["serve_version"] == shard0["version"]
+          and servers[0]["serve_pinned"] == 1,
+          f"{what}: shard 0 after the rollback {shard0} (incumbent "
+          f"{snap['incumbent']}), its stats {servers[0]}")
+    check(all(st is not None and st["rejected"] == 0 for st in servers),
+          f"{what}: infer stats {servers}")
+    check(launches == {"gather_rows": 0, "gather_stacks": trainer.steps},
+          f"{what}: gather launches {launches} in {trainer.steps} steps")
+    check(_finite_logged(trainer) > 0, f"{what}: no learner metrics logged")
+    _tree_sums(trainer, what)
+    table = trainer.fleet_summary()
+    from apex_tpu_torch.fleet.registry import format_fleet_table
+    check("serving: " in format_fleet_table(table),
+          f"{what}: no serving lines in the status table")
+
+    def since_publish(event):
+        v = int(event["version"].split(":")[1])
+        return round(event["wall"] - published[v], 3) if v in published \
+            else None
+
+    timeline = snap["timeline"]
+    canary_ev = [e for e in timeline if e["to"] == "CANARY"]
+    promoted = next(e for e in timeline if e["to"] == "PROMOTED")
+    first_canary = canary_ev[0]
+    rb_canary = [e for e in canary_ev if e["t_s"] <= first_rb["t_s"]][-1]
+    times = {"version_to_canary_s": [since_publish(e) for e in canary_ev],
+             "version_to_promoted_s": round(
+                 promoted["wall"] - published.get(int(
+                     first_canary["version"].split(":")[1]),
+                     promoted["wall"]), 3),
+             "version_to_rolled_back_s": round(
+                 first_rb["wall"] - published.get(int(
+                     rb_canary["version"].split(":")[1]),
+                     first_rb["wall"]), 3)}
+    log(f"{what}: seconds from a new version's publish to CANARY "
+        f"{times['version_to_canary_s']}, to PROMOTED "
+        f"{times['version_to_promoted_s']}, to ROLLED_BACK "
+        f"{times['version_to_rolled_back_s']}; shard 0 back on "
+        f"{shard0['epoch']}:{shard0['version']} (incumbent "
+        f"{snap['incumbent']['id']}, rejected {rejected}), pinned, {servers[0]['serve_rollbacks']} restore(s); "
+        f"shard 1 {snap['shards'].get('1')}; infer-0 "
+        f"{servers[0]['requests']} requests, infer-1 "
+        f"{servers[1]['requests']}; controller snapshot deployments "
+        f"{final['deployments']}, promotions {final['promotions']}, "
+        f"rollbacks {final['rollbacks']}")
+    log(f"{what}: learner steps/s {trainer.steps_rate.rate:.3f} vs 13b "
+        f"{RATES.get('remote_policy', float('nan')):.3f}; gather launches "
+        f"{launches} in {trainer.steps} steps; role exit codes {codes}; "
+        f"no port bound")
+    return dict(launches=launches, steps_per_s=trainer.steps_rate.rate,
+                **times)
+
+
+def tenant_ctl_run(dev, gather) -> dict:
+    """15b: two tenants on 2 shared ``--role replay`` shards: ``t0`` (the
+    default, ``ApexCatch-v0``, its learner in this process) and ``rally``
+    (``ApexRally-v0``, its learner through the CLI), 2 actors x 8 envs
+    each and ``--role tenant-ctl``.  Both are admitted and banded; once
+    rally's quota has bitten, rally's learner is stopped; rally is
+    EVICTED and t0's band grows to both shards while t0 keeps
+    training."""
+    import threading
+
+    from apex_tpu_torch.fleet.registry import (format_fleet_table,
+                                               status_request)
+    from apex_tpu_torch.training import apex as apex_module
+
+    what = "ctl_tenant"
+    ports = _free_ports(8)
+    t0_ports, rally_ports = ports[:3], ports[4:7]
+    t0_status, rally_status = ports[3], ports[7]
+    base = _port_block(2)
+    cfg = _service_cfg(t0_ports, replay_shards=2, replay_port_base=base,
+                       status_port=t0_status)
+    import dataclasses
+    cfg = cfg.replace(actor=dataclasses.replace(cfg.actor,
+                                                n_actors=TENANT_ACTORS))
+    roster = [{"name": "t0", "env_id": "ApexCatch-v0", "accel": True,
+               "learner_ip": "127.0.0.1", "status_port": t0_status,
+               "param_port": t0_ports[1]},
+              {"name": "rally", "env_id": "ApexRally-v0",
+               "replay_quota": TENANT_QUOTA, "learner_ip": "127.0.0.1",
+               "status_port": rally_status, "param_port": rally_ports[1]}]
+    tenants_env = {"APEX_TENANTS": json.dumps(roster)}
+    shard_argv = ["--role", "replay", "--env-id", "ApexCatch-v0", "--seed",
+                  str(SEED), "--replay-shards", "2", "--replay-port-base",
+                  str(base), "--capacity", str(TENANT_CAPACITY), "--warmup",
+                  str(TRAIN_WARMUP), "--batch-size", str(BATCH),
+                  "--batch-port", str(t0_ports[0]), "--heartbeat-interval",
+                  "1.0", *_device_flag(dev)]
+
+    def tenant_argv(tports, env_id, *extra):
+        return ["--env-id", env_id, "--seed", str(SEED),
+                "--n-envs-per-actor", str(ENVS_PER_ACTOR),
+                "--send-interval", str(SEND_INTERVAL), "--batch-port",
+                str(tports[0]), "--param-port", str(tports[1]),
+                "--barrier-port", str(tports[2]), "--heartbeat-interval",
+                "1.0", "--barrier-timeout", "120", "--replay-shards", "2",
+                "--replay-port-base", str(base), "--n-actors",
+                str(TENANT_ACTORS), *extra]
+
+    def actor_env(i, tenant):
+        env = dict(_actor_env(i), N_ACTORS=str(TENANT_ACTORS))
+        if tenant:
+            env["APEX_TENANT"] = tenant
+        return env
+
+    rally_comms = dataclasses.replace(cfg.comms, status_port=rally_status)
+    ctl_argv = ["--role", "tenant-ctl", "--learner-ip", "127.0.0.1",
+                "--batch-port", str(t0_ports[0]), "--status-port",
+                str(t0_status), "--replay-shards", "2", "--dead-after",
+                str(TENANT_DEAD_S), "--serve-interval", str(CTL_INTERVAL),
+                "--max-seconds", str(TENANT_SECONDS + 60)]
+    state = {"stop": False, "phase": "start", "killed_at": None,
+             "evicted_at": None, "steps_at_evict": None, "tenancy": []}
+    real = apex_module.ConcurrentTrainer._drain_stats
+
+    def drain(self, steps):
+        real(self, steps)
+        ten = self.tenancy_state
+        if ten is not None and (not state["tenancy"]
+                                or state["tenancy"][-1] is not ten):
+            state["tenancy"].append(ten)
+        state["steps"] = self.steps
+        state["quota"] = {k: (p.gauges or {}).get("quota_dropped", 0)
+                          for k, p in self.fleet.peers.items()
+                          if k.startswith("replay-")}
+        if (state["evicted_at"] is not None and self.steps
+                >= state["steps_at_evict"] + TENANT_AFTER_STEPS):
+            state["stop"] = True
+        if state["stop"]:
+            self.request_stop()
+
+    def watch(roles):
+        deadline = time.monotonic() + TENANT_SECONDS
+        while time.monotonic() < deadline and not state["stop"]:
+            time.sleep(0.25)
+            if state["phase"] == "start":
+                # tenant-ctl starts once both learners answer, so their
+                # start-up is not read as a silence
+                if state.get("steps", 0) >= 1 and status_request(
+                        rally_comms, learner_ip="127.0.0.1", timeout_s=1.0):
+                    roles.launch("tenant-ctl", ctl_argv, tenants_env)
+                    state["phase"] = "admit"
+                continue
+            ten = state["tenancy"][-1] if state["tenancy"] else {}
+            tenants = ten.get("tenants") or {}
+            quota = state.get("quota") or {}
+            if (state["phase"] == "admit" and len(tenants) == 2
+                    and all(t["state"] == "ACTIVE" for t in tenants.values())
+                    and len(quota) == 2 and all(quota.values())):
+                state["killed_at"] = time.monotonic()
+                state["rally_exit"] = _retire(roles, "learner-rally")
+                state["phase"] = "evict"
+            elif (state["phase"] == "evict"
+                  and tenants.get("rally", {}).get("state") == "EVICTED"
+                  and tenants.get("t0", {}).get("replay_band") == [0, 1]):
+                state["evicted_at"] = time.monotonic()
+                state["steps_at_evict"] = state["steps"]
+                state["phase"] = "done"
+
+    roles = RoleProcesses()
+    saved = _env_set(tenants_env)
+    apex_module.ConcurrentTrainer._drain_stats = drain
+    watcher = threading.Thread(target=watch, args=(roles,), daemon=True)
+    logdir = None
+    try:
+        import tempfile
+        logdir = tempfile.mkdtemp(prefix="apex-tenancy-")
+        for s in range(2):
+            roles.launch(f"replay-{s}", [*shard_argv, "--shard-id", str(s)],
+                         tenants_env)
+        roles.launch("learner-rally", [
+            "--role", "learner", "--tenant", "rally",
+            *tenant_argv(rally_ports, "ApexRally-v0"), "--n-evaluators", "0",
+            "--status-port", str(rally_status), "--capacity",
+            str(TENANT_CAPACITY), "--warmup", str(TRAIN_WARMUP),
+            "--batch-size", str(BATCH), "--total-steps", str(10 ** 6),
+            "--max-seconds", str(TENANT_SECONDS), *_device_flag(dev)],
+            tenants_env)
+        for i in range(TENANT_ACTORS):
+            roles.launch(f"actor-{i}", ["--role", "actor", *tenant_argv(
+                t0_ports, "ApexCatch-v0")], actor_env(i, ""))
+            roles.launch(f"rally-actor-{i}", ["--role", "actor", *tenant_argv(
+                rally_ports, "ApexRally-v0")], actor_env(i, "rally"))
+        log(f"{what}: t0 (ApexCatch-v0, run_learner on {dev}) and rally "
+            f"(ApexRally-v0, --role learner) on 2 replay shards (ports "
+            f"{base}, {base + 1}; a partition per tenant at capacity "
+            f"{TENANT_CAPACITY}, rally's quota {TENANT_QUOTA} per shard), "
+            f"{TENANT_ACTORS} actors x {ENVS_PER_ACTOR} envs each and "
+            f"tenant-ctl (started once both learners answer; tick "
+            f"{CTL_INTERVAL} s, eviction after {TENANT_DEAD_S} s of "
+            f"silence)")
+        watcher.start()
+        trainer, wall, launches = _learner_run(
+            dev, gather, roles, what, cfg, n_peers=TENANT_ACTORS,
+            total_steps=10 ** 6, logdir=logdir)
+        state["stop"] = True
+        watcher.join(timeout=30)
+        codes = _stop_roles(roles, what)
+        shards = [roles.stats(f"replay-{s}") for s in range(2)]
+        final = _snapshot_line(roles, "tenant-ctl")
+        with open(os.path.join(logdir, "fleet_summary.json")) as f:
+            summary = json.load(f)
+    finally:
+        apex_module.ConcurrentTrainer._drain_stats = real
+        _env_restore(saved)
+        roles.close()
+        if logdir is not None:
+            import shutil
+            shutil.rmtree(logdir, ignore_errors=True)
+    bound = _still_bound(ports + [base, base + 1])
+    check(not bound, f"{what}: ports {bound} still bound after the run")
+    check(state.get("rally_exit") == 0,
+          f"{what}: rally's learner exited {state.get('rally_exit')} on "
+          f"SIGTERM")
+    check(state["phase"] == "done",
+          f"{what}: stopped in phase {state['phase']} (tenancy "
+          f"{state['tenancy'][-1:] if state['tenancy'] else None}, quota "
+          f"drops {state.get('quota')})")
+    check(all(st is not None for st in shards),
+          f"{what}: a shard printed no stats")
+    for s, st in enumerate(shards):
+        rally = st["tenants"].get("rally") or {}
+        check(st["unknown_tenant"] == 0 and rally.get("quota_dropped", 0) > 0
+              and rally.get("quota") == TENANT_QUOTA,
+              f"{what}: shard {s} unknown {st['unknown_tenant']}, rally "
+              f"partition {rally}")
+        if dev.type == "cuda":
+            sampled = sum(p["sampled"] for p in st["tenants"].values())
+            check(st["gather_launches"]["gather_stacks"] == sampled > 0,
+                  f"{what}: shard {s} launched {st['gather_launches']} for "
+                  f"{sampled} batches")
+    ten = summary.get("tenancy") or {}
+    check(ten.get("tenants", {}).get("rally", {}).get("state") == "EVICTED"
+          and ten["tenants"]["t0"]["replay_band"] == [0, 1]
+          and ten["evictions"] >= 1 and ten["admissions"] >= 2,
+          f"{what}: fleet_summary.json tenancy {ten}")
+    table = format_fleet_table(summary)
+    check("tenant rally: EVICTED" in table and "tenancy: " in table,
+          f"{what}: the status table's tenancy lines:\n{table}")
+    check(final is not None and final["tenants"]["rally"]["state"]
+          == "EVICTED", f"{what}: tenant-ctl's snapshot {final}")
+    local = trainer.steps - trainer.service_steps
+    check(launches == {"gather_rows": 0, "gather_stacks": local},
+          f"{what}: the learner's gather launches {launches} with {local} "
+          f"local steps")
+    check(trainer.service_steps > 0 and _finite_logged(trainer) > 0,
+          f"{what}: {trainer.service_steps} service steps")
+    kill_to_evict = state["evicted_at"] - state["killed_at"]
+    shard_launches = sum(st["gather_launches"]["gather_stacks"]
+                         for st in shards)
+    log(f"{what}: t0 {trainer.steps} learner steps in {wall:.3f} s "
+        f"({trainer.service_steps} on shard batches, "
+        f"{state['steps'] - state['steps_at_evict']} after rally's "
+        f"eviction); rally's learner stopped to EVICTED in "
+        f"{kill_to_evict:.3f} s; timeline "
+        f"{[(e['t_s'], e['event'], e['tenant'], e['reason']) for e in ten['timeline']]}")
+    log(f"{what}: shards " + "; ".join(
+        f"{s}: " + ", ".join(
+            f"{t} {p['ingested']} ingested, {p['sampled']} sampled, quota "
+            f"{p['quota']} dropped {p['quota_dropped']}"
+            for t, p in sorted(st["tenants"].items()))
+        + f", gather launches {st['gather_launches']['gather_stacks']}, "
+          f"unknown tenant {st['unknown_tenant']}, peak "
+          f"{st['peak_bytes'] / 2**30:.3f} GiB"
+        for s, st in enumerate(shards)))
+    log(f"{what}: t0 learner steps/s {trainer.steps_rate.rate:.3f} vs 13a "
+        f"{RATES.get('replay_service', float('nan')):.3f}; learner gather "
+        f"launches {launches}; role exit codes {codes}; no port bound")
+    return dict(launches=launches, shard_launches=shard_launches,
+                steps_per_s=trainer.steps_rate.rate,
+                kill_to_evict_s=kill_to_evict)
+
+
+def pbt_ctl_run(dev, gather) -> dict:
+    """15c: two lineages on the Catch ladder (``APEX_POPULATION``): ``la``
+    with its learner through the CLI, ``lb`` with its learner in this
+    process; each with 1 actor x 8 envs and an evaluator; a chaos
+    ``score_bias`` scoped to ``lb`` ranks it last.  ``--role pbt-ctl``
+    sends ``lb`` an EXPLOIT from ``la``: ``lb`` applies it at its next
+    health tick, its ``train_state`` equals ``la``'s checkpoint bit for
+    bit, its epoch goes up by one (the param channel carries the new
+    epoch), the mutated lr is live and ``population_ctl.exploits`` is
+    1."""
+    import tempfile
+    import threading
+
+    from apex_tpu_torch.runtime.transport import ParamSubscriber
+    from apex_tpu_torch.tenancy import namespace as tenancy_ns
+    from apex_tpu_torch.training import apex as apex_module
+    from apex_tpu_torch.training.checkpoint import load_raw
+
+    what = "ctl_pbt"
+    ports = _free_ports(8)
+    la_ports, lb_ports = ports[:3], ports[4:7]
+    la_status, lb_status = ports[3], ports[7]
+    tmp = tempfile.mkdtemp(prefix="apex-pbt-")
+    la_ckpt = os.path.join(tmp, "la")
+    population = [{"name": "la", "env_id": "ApexCatch-v0",
+                   "learner_ip": "127.0.0.1", "status_port": la_status,
+                   "param_port": la_ports[1]},
+                  {"name": "lb", "env_id": "ApexCatch-v0",
+                   "learner_ip": "127.0.0.1", "status_port": lb_status,
+                   "param_port": lb_ports[1]}]
+    pop_env = {"APEX_POPULATION": json.dumps(population)}
+    cfg = _service_cfg(lb_ports, status_port=lb_status)
+    import dataclasses
+    cfg = cfg.replace(
+        replay=dataclasses.replace(cfg.replay, capacity=PBT_CAPACITY),
+        actor=dataclasses.replace(cfg.actor, n_actors=1))
+
+    def lineage_argv(lports, *extra):
+        return ["--env-id", "ApexCatch-v0", "--seed", str(SEED),
+                "--n-envs-per-actor", str(ENVS_PER_ACTOR),
+                "--send-interval", str(SEND_INTERVAL), "--batch-port",
+                str(lports[0]), "--param-port", str(lports[1]),
+                "--barrier-port", str(lports[2]), "--heartbeat-interval",
+                "1.0", "--barrier-timeout", "120", "--n-actors", "1",
+                *extra]
+
+    state = {"stop": False, "applied_at": None, "check": None,
+             "epochs": None}
+    real = (apex_module.ConcurrentTrainer.restore_weights,
+            apex_module.ConcurrentTrainer._drain_stats)
+
+    def restore(self, path):
+        epoch = self.learner_epoch
+        meta = real[0](self, path)
+        state["restores"] = state.get("restores", 0) + 1
+        if state["check"] is not None:
+            return meta
+        raw, _ = load_raw(path)
+        ts, want = self.train_state, raw["train_state"]
+        same = (all(torch.equal(t.cpu(), want["params"][k])
+                    for k, t in ts.params.state_dict().items())
+                and all(torch.equal(t.cpu(), want["target_params"][k])
+                        for k, t in ts.target_params.state_dict().items())
+                and all(torch.equal(t.cpu(), w) for t, w in zip(
+                    ts.opt_state.mu + ts.opt_state.nu,
+                    want["opt_state"]["mu"] + want["opt_state"]["nu"]))
+                and ts.opt_state.count == want["opt_state"]["count"]
+                and ts.step == want["step"])
+        state["check"] = dict(path=path, bit_equal=same,
+                              donor_step=int(want["step"]))
+        state["epochs"] = (epoch, self.learner_epoch)
+        state["applied_at"] = time.monotonic()
+        state["steps_at_apply"] = self.steps
+        return meta
+
+    def drain(self, steps):
+        real[1](self, steps)
+        if (state["applied_at"] is not None
+                and self.steps >= state["steps_at_apply"] + PBT_AFTER_STEPS
+                and state.get("seen_epoch")):
+            state["stop"] = True
+        if state["stop"]:
+            self.request_stop()
+
+    def watch():
+        """A subscriber on lb's param topic: the epoch the actors see."""
+        sub = ParamSubscriber(cfg.comms, learner_ip="127.0.0.1",
+                              topic=tenancy_ns.param_topic("lb"))
+        try:
+            deadline = time.monotonic() + PBT_SECONDS
+            while time.monotonic() < deadline and not state["stop"]:
+                got = sub.poll(250)
+                if (got is not None and state["epochs"] is not None
+                        and sub.learner_epoch >= state["epochs"][1]):
+                    state["seen_epoch"] = sub.learner_epoch
+        finally:
+            sub.close()
+
+    roles = RoleProcesses()
+    saved = _env_set({**pop_env, "APEX_TENANT": "lb"})
+    apex_module.ConcurrentTrainer.restore_weights = restore
+    apex_module.ConcurrentTrainer._drain_stats = drain
+    watcher = threading.Thread(target=watch, daemon=True)
+    bias = {"CHAOS_SEED": str(SEED), "CHAOS_SPEC": json.dumps(
+        {"tenant": "lb", "score_bias": {"evaluator": {
+            "after_s": 0, "delta": SCORE_BIAS}}})}
+    try:
+        roles.launch("learner-la", [
+            "--role", "learner", "--tenant", "la", *lineage_argv(la_ports),
+            "--status-port", str(la_status), "--capacity",
+            str(PBT_CAPACITY), "--warmup", str(TRAIN_WARMUP),
+            "--batch-size", str(BATCH), "--checkpoint-dir", la_ckpt,
+            "--save-interval", str(PBT_SAVE_EVERY), "--total-steps",
+            str(10 ** 6), "--max-seconds", str(PBT_SECONDS),
+            *_device_flag(dev)], pop_env)
+        for name, lports, extra in (("la", la_ports, {}),
+                                    ("lb", lb_ports, bias)):
+            roles.launch(f"actor-{name}", ["--role", "actor", *lineage_argv(
+                lports)], dict(_actor_env(0), N_ACTORS="1",
+                               APEX_TENANT=name, **pop_env))
+            roles.launch(f"evaluator-{name}", [
+                "--role", "evaluator", "--tenant", name,
+                *lineage_argv(lports), *_device_flag(dev)],
+                {**pop_env, **extra})
+        roles.launch("pbt-ctl", [
+            "--role", "pbt-ctl", "--batch-port", str(lb_ports[0]),
+            "--status-port", str(lb_status), "--pbt-decide",
+            str(PBT_DECIDE), "--pbt-frac", "0.5", "--pbt-min-episodes",
+            "1", "--serve-interval", str(CTL_INTERVAL), "--max-seconds",
+            str(PBT_SECONDS + 60)], pop_env)
+        log(f"{what}: lineages la (--role learner --tenant la, checkpoint "
+            f"every {PBT_SAVE_EVERY} steps) and lb (run_learner on {dev} "
+            f"under APEX_TENANT=lb), 1 actor x {ENVS_PER_ACTOR} envs and 1 "
+            f"evaluator each (lb's under a score bias of {SCORE_BIAS}), "
+            f"pbt-ctl (decide every {PBT_DECIDE} s, frac 0.5, 1 episode)")
+        watcher.start()
+        trainer, wall, launches = _learner_run(
+            dev, gather, roles, what, cfg, n_peers=2, total_steps=10 ** 6)
+        state["stop"] = True
+        watcher.join(timeout=30)
+        codes = _stop_roles(roles, what)
+        final = _snapshot_line(roles, "pbt-ctl")
+    finally:
+        (apex_module.ConcurrentTrainer.restore_weights,
+         apex_module.ConcurrentTrainer._drain_stats) = real
+        _env_restore(saved)
+        roles.close()
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+    bound = _still_bound(ports)
+    check(not bound, f"{what}: ports {bound} still bound after the run")
+    rec = trainer._population_ctl or {}
+    check(state["check"] is not None and state["check"]["bit_equal"],
+          f"{what}: lb's train_state after the exploit vs la's checkpoint: "
+          f"{state['check']}")
+    check(rec.get("exploits") == 1 == state.get("restores")
+          and rec.get("errors") == 0,
+          f"{what}: lb's population_ctl {rec}")
+    check(state["epochs"] is not None
+          and state["epochs"][1] == state["epochs"][0] + 1
+          and trainer.learner_epoch == state["epochs"][1]
+          and state.get("seen_epoch") == state["epochs"][1],
+          f"{what}: epochs {state['epochs']}, the param channel carried "
+          f"{state.get('seen_epoch')}")
+    lr = (trainer.hparams_live or {}).get("lr")
+    check(lr is not None and trainer.core.optimizer.lr == lr
+          == trainer.cfg.learner.lr,
+          f"{what}: the mutated lr {lr} is not live "
+          f"({trainer.core.optimizer.lr})")
+    check(final is not None and final["exploits"] >= 1
+          and final["lineages"]["lb"]["parent"] == "la",
+          f"{what}: pbt-ctl's snapshot {final}")
+    check(launches == {"gather_rows": 0, "gather_stacks": trainer.steps},
+          f"{what}: gather launches {launches} in {trainer.steps} steps")
+    check(_finite_logged(trainer) > 0, f"{what}: no learner metrics logged")
+    _tree_sums(trainer, what)
+    log(f"{what}: lb {trainer.steps} learner steps in {wall:.3f} s; exploit "
+        f"applied from {state['check']['path']} (la's step "
+        f"{state['check']['donor_step']}), train_state bit-equal to it; "
+        f"epoch {state['epochs'][0]} -> {state['epochs'][1]}, carried by "
+        f"lb's param channel; lr now {lr} (live in the optimizer); "
+        f"population_ctl {rec}; pbt-ctl timeline "
+        f"{[(e['t_s'], e['event'], e['lineage'], e['reason']) for e in final['timeline']]}")
+    log(f"{what}: lb learner steps/s {trainer.steps_rate.rate:.3f}; gather "
+        f"launches {launches}; role exit codes {codes}; no port bound")
+    return dict(launches=launches, steps_per_s=trainer.steps_rate.rate)
+
+
+def control_phase(dev, gather, msgs: list) -> dict:
+    """Phase 15: 15-ref, 15a-15c.  Returns the paths' launches."""
+    t = [time.perf_counter()]
+    control_reference_phase(dev, gather, msgs)
+    t.append(time.perf_counter())
+    serve = serve_ctl_run(dev, gather)
+    t.append(time.perf_counter())
+    tenant = tenant_ctl_run(dev, gather)
+    t.append(time.perf_counter())
+    pbt = pbt_ctl_run(dev, gather)
+    t.append(time.perf_counter())
+    names = ("ctl_ref", "ctl_serve", "ctl_tenant", "ctl_pbt")
+    log("control: phase 15 seconds: " + ", ".join(
+        f"{n} {b - a:.1f}" for n, a, b in zip(names, t, t[1:])))
+    return {"ctl_serve": serve["launches"],
+            "ctl_tenant": tenant["launches"],
+            "ctl_tenant_shards": {"gather_rows": 0,
+                                  "gather_stacks": tenant["shard_launches"]},
+            "ctl_pbt": pbt["launches"]}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR",
@@ -4216,6 +5111,7 @@ def main() -> int:
     remote, p12a = role_phase(dev, gather, loop)
     services = service_phase(dev, gather, p12a)
     fleet = fleet_phase(dev, gather, msgs, p12a)
+    control = control_phase(dev, gather, msgs)
     paths = {"train": loop["launches"], "train_serial": serial["launches"],
              "consume": result["launches"],
              "full_width_pipelined": full["pipelined"]["launches"],
@@ -4223,7 +5119,7 @@ def main() -> int:
              "checkpoint": saved["launches"], "dqn": dqn["launches"],
              "r2d2_train": r2d2["launches"],
              "r2d2_single": r2d2_single["launches"], **ondevice, **aql,
-             **remote, **services, **fleet}
+             **remote, **services, **fleet, **control}
     # each kernel's main path is the trainers' train() that runs it:
     # ApexTrainer's for gather_stacks, R2D2ApexTrainer's for gather_rows;
     # the other paths stand beside

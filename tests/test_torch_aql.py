@@ -687,6 +687,26 @@ def test_aql_apex_trainer_trains_on_pixels_with_an_actor_process(
     assert t.pool._worker_fn is vector_aql_worker_main
     assert isinstance(t.replay, FramePoolReplay)
     assert t.replay.extra_spec == (("a_mu", (T_P + 3, 1)),)   # clamped U
+    # Merging is opportunistic: the staging thread merges the chunks that
+    # wait when it polls.  Hold its first poll until two chunks wait, so
+    # the warm-up merge does not hang on the actor outrunning the thread.
+    real_poll = t.pool.poll_chunks
+    held, primed = [], []
+
+    def poll_chunks(max_chunks, timeout=0.0):
+        if not primed:
+            deadline = time.monotonic() + 60.0
+            while len(held) < 2 and time.monotonic() < deadline:
+                held.extend(real_poll(2 - len(held), timeout=0.05))
+            primed.append(True)
+        out = held[:max_chunks]
+        del held[:len(out)]
+        if len(out) < max_chunks:
+            out += real_poll(max_chunks - len(out),
+                             timeout=0.0 if out else timeout)
+        return out
+
+    monkeypatch.setattr(t.pool, "poll_chunks", poll_chunks)
     t.train(total_steps=8, max_seconds=120)
     assert t.steps == t.train_state.step == 8
     assert calls == [(2 * 16, 4)] * 8

@@ -6,8 +6,10 @@
   flags are exactly ``--device`` and ``--send-interval``.
 * ``config_from_args`` of both agree on every field the port's config
   shares with JAX's.
-* Roles and options that are not ported exit with status 2 naming their
-  ROADMAP item.  ``--role status`` exits 1 with the JAX message when no
+* ``--mesh-dp`` above 1 exits with status 2 naming its ROADMAP item.
+  The three controllers (``--role serve-ctl|tenant-ctl|pbt-ctl``) read
+  their flags and env twins and take their control rounds against a fake
+  learner's status server on localhost, exiting 0.  ``--role status`` exits 1 with the JAX message when no
   learner answers, and against a live port learner prints the fleet table
   and exits 0.  The services (``--role replay|infer|loadgen``,
   ``--remote-policy``, ``--replay-shards`` and the socket learner's
@@ -32,6 +34,7 @@ import numpy as np
 import pytest
 
 from apex_tpu.runtime import cli as jax_cli
+from apex_tpu_torch.config import CommsConfig
 from apex_tpu_torch.runtime import cli
 
 PORT_ONLY = {"device", "send_interval"}
@@ -62,6 +65,11 @@ ENV_TWINS = {
     "INFER_SHARD_ID": "1", "APEX_STATUS_PORT": "1500",
     "APEX_SUSPECT_AFTER": "2.5", "APEX_METRICS_HTTP": "9100",
     "APEX_TRACE_DIR": "/tmp/trace", "APEX_PROFILE_DIR": "/tmp/prof",
+    "APEX_TENANT": "rally", "APEX_SERVE_CANARY_FRAC": "0.25",
+    "APEX_SERVE_SOAK_S": "7", "APEX_SERVE_VERSION_EVERY": "2",
+    "APEX_SERVE_INTERVAL_S": "0.5", "APEX_PBT_DECIDE_S": "3",
+    "APEX_PBT_FRAC": "0.5", "APEX_PBT_RESAMPLE": "0.1",
+    "APEX_PBT_MIN_EPISODES": "2",
 }
 
 
@@ -70,7 +78,8 @@ def _defaults(parser) -> dict:
 
 
 def _clear_env(monkeypatch) -> None:
-    for name in ENV_TWINS | {"APEX_DEVICE": "", "APEX_SEND_INTERVAL": ""}:
+    for name in ENV_TWINS | {"APEX_DEVICE": "", "APEX_SEND_INTERVAL": "",
+                             "APEX_TENANTS": "", "APEX_POPULATION": ""}:
         monkeypatch.delenv(name, raising=False)
 
 
@@ -156,9 +165,6 @@ def test_config_from_args_agrees_with_jax_on_every_shared_field(
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--role", "serve-ctl"], "item 10b"),
-    (["--role", "tenant-ctl"], "item 10b"),
-    (["--role", "pbt-ctl"], "item 10b"),
     (["--role", "apex", "--mesh-dp", "2"], "item 4"),
 ])
 def test_unported_paths_exit_2_naming_their_item(monkeypatch, capsys, argv,
@@ -173,6 +179,84 @@ def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
+
+
+def _fake_learner(port: int):
+    """A status server answering like a live learner: a published model
+    fence, the canary gate's SLO states, one evaluator's gauges."""
+    from apex_tpu_torch.fleet.registry import (FleetRegistry,
+                                               FleetStatusServer)
+    snap = {"steps": 12,
+            "metrics": {"param_version": 4, "learner_epoch": 2,
+                        "checkpoint_latest": "/ck/ckpt_12.pt"},
+            "slo": {"severity": 0, "objectives": [
+                {"name": "eval_score", "state": "OK"},
+                {"name": "infer_rt_p99_ms", "state": "OK"}]},
+            "peers": [{"identity": "evaluator-0-ab", "role": "evaluator",
+                       "state": "ALIVE", "host": "h1",
+                       "gauges": {"eval_score_mean": 1.5,
+                                  "eval_episodes": 5}}]}
+    comms = CommsConfig(status_port=port)
+    cmds = []
+    server = FleetStatusServer(comms, FleetRegistry(comms),
+                               snapshot_fn=lambda: snap,
+                               ctl_fn=lambda c: cmds.append(c) or
+                               {"accepted": True})
+    server.start()
+    return server
+
+
+@pytest.mark.parametrize("role", ["serve-ctl", "tenant-ctl", "pbt-ctl"])
+def test_controller_roles_run_their_rounds_against_a_learner(
+        monkeypatch, capsys, role):
+    """Each controller reads its flags and env twins, takes its control
+    rounds against a learner's status server on localhost and exits 0,
+    printing its final snapshot."""
+    _clear_env(monkeypatch)
+    status = _free_port()
+    learner = _fake_learner(status)
+    lineage = {"learner_ip": "127.0.0.1", "status_port": status}
+    env = {"serve-ctl": {"APEX_SERVE_CANARY_FRAC": "0.5",
+                         "APEX_SERVE_SOAK_S": "7",
+                         "APEX_SERVE_VERSION_EVERY": "2",
+                         "APEX_INFER_SHARDS": "2"},
+           "tenant-ctl": {"APEX_REPLAY_SHARDS": "2", "APEX_TENANTS":
+                          json.dumps([dict(name="rally", **lineage)])},
+           "pbt-ctl": {"APEX_PBT_DECIDE_S": "0.1", "APEX_PBT_FRAC": "0.5",
+                       "APEX_PBT_MIN_EPISODES": "1", "APEX_POPULATION":
+                       json.dumps([dict(name="la", **lineage),
+                                   dict(name="lb", **lineage)])}}[role]
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    monkeypatch.setenv("APEX_SERVE_INTERVAL_S", "0.2")
+    argv = ["--role", role, "--learner-ip", "127.0.0.1",
+            "--status-port", str(status), "--batch-port", str(_free_port()),
+            "--infer-port", str(_free_port()), "--max-seconds", "1.0"]
+    try:
+        assert cli.main(argv) == 0
+    finally:
+        learner.stop()
+    out = capsys.readouterr().out
+    line = next(x for x in out.splitlines()
+                if x.startswith(f"{role}: snapshot "))
+    snap = json.loads(line[len(f"{role}: snapshot "):])
+    if role == "serve-ctl":
+        assert (snap["n_shards"], snap["canary_frac"], snap["soak_s"],
+                snap["version_every"]) == (2, 0.5, 7.0, 2)
+        assert snap["incumbent"] == {"epoch": 2, "version": 4, "id": "2:4"}
+        assert snap["state"] == "IDLE"
+    elif role == "tenant-ctl":
+        assert snap["n_replay_shards"] == 2
+        rally = snap["tenants"]["rally"]
+        assert (rally["state"], rally["steps"], rally["replay_band"]) == (
+            "ACTIVE", 12, [0, 1])
+    else:
+        assert (snap["decide_every_s"], snap["frac"]) == (0.1, 0.5)
+        assert snap["decisions"] >= 1 and snap["exploits"] == 0
+        for name in ("la", "lb"):
+            got = snap["lineages"][name]
+            assert got["alive"] and got["score"] == 1.5
+            assert got["checkpoint"] == "/ck/ckpt_12.pt"
 
 
 def test_status_without_a_learner_exits_1_with_the_jax_message(

@@ -50,7 +50,11 @@ ZMQ_DIRS = ("apex_tpu_torch/runtime/", "apex_tpu_torch/replay_service/",
             # lazily (their status and scrape clients), as the JAX ones do
             "apex_tpu_torch/fleet/registry.py",
             "apex_tpu_torch/fleet/supervise.py",
-            "apex_tpu_torch/obs/metrics.py")
+            "apex_tpu_torch/obs/metrics.py",
+            # the tenancy and population controllers' socket wrappers,
+            # which import zmq lazily, as the JAX ones do
+            "apex_tpu_torch/tenancy/scheduler.py",
+            "apex_tpu_torch/population/controller.py")
 
 
 def test_only_the_runtime_imports_zmq():
