@@ -36,8 +36,9 @@ The J-rules with no eager-torch counterpart today:
   code is an ordinary copy.
 * J010 (host clock inside a jitted step) — eager code reads the clock
   when it runs, not once at trace time.
-* J011 (sharding-annotation drift) — there is no mesh until the sharded
-  learner (ROADMAP item 4); the rule returns with it.
+* J011 (sharding-annotation drift) — the port's sharded learner
+  annotates nothing: each rank holds whole tensors and its collectives
+  are explicit calls (:mod:`apex_tpu_torch.parallel.mesh`).
 
 Each rule's behavioral contract is its fixture pair in
 ``tests/test_torch_analysis.py``.

@@ -8,8 +8,8 @@ fleet registry, its status port and its reaction, and their
 :class:`RoleIdentity`), with the same defaults (reference
 hyperparameters: ``origin_repo/arguments.py:9-74``), and of
 :func:`~apex_tpu.config.small_test_config`.  Fields that no part of the
-port reads yet (mesh, the tenancy and serve-ctl knobs of the comms
-plane) are not copied.
+port reads yet (the mesh's axis names, the tenancy and serve-ctl knobs
+of the comms plane) are not copied.
 """
 
 from __future__ import annotations
@@ -62,6 +62,10 @@ class LearnerConfig:
     compute_dtype: str = "bfloat16"  # conv/matmul dtype; params stay f32
     # transitions the DQN driver folds into each replay ingest (fixed shape)
     ingest_chunk: int = 512
+    # the learner's dp degree is prod(mesh_shape): that many ranks, each
+    # with its own replay shard of replay.capacity, mean their gradients
+    # (apex_tpu_torch.parallel); (1,) is the one-card learner
+    mesh_shape: tuple[int, ...] = (1,)
     # >1: when at least this many chunks are queued and the replay-ratio
     # budget allows, drain them into one fused_multi_step call of
     # scan_steps fused steps

@@ -40,8 +40,10 @@ Contracts carried over (``fused.py:21-39``):
 
 The acting priorities are the host builder's two rounded f32 ops
 (:func:`acting_priorities`); JAX's program contracts them into one FMA,
-so the two agree within 1 ulp.  Not ported: the dp mesh (``shard_map``
-over lanes and replay partitions, item 4).
+so the two agree within 1 ulp.  Not ported: ``FusedStep``'s dp
+(``shard_map`` over lanes and replay partitions,
+``apex_tpu/ondevice/fused.py:58-60,123-126``; ROADMAP slice 14), so
+:class:`FusedApexTrainer` refuses ``learner.mesh_shape`` above 1.
 """
 
 from __future__ import annotations
@@ -325,7 +327,8 @@ class FusedApexTrainer(ApexTrainer):
     (role ``rollout``, :meth:`FusedStep.counters` as gauges), a socket
     pool's learner serves ``--role status``, and the hot loop's dispatch
     gaps land on the ``learner-fused-loop`` track of the trace ring.  Not
-    ported: the dp mesh (item 4)."""
+    ported: ``FusedStep``'s dp (ROADMAP slice 14); a config whose
+    ``learner.mesh_shape`` is above 1 raises ``NotImplementedError``."""
 
     def __init__(self, config: ApexConfig | None = None, pool=None,
                  train_ratio: float | None = None,
@@ -338,6 +341,11 @@ class FusedApexTrainer(ApexTrainer):
                  rollout_len: int | None = None,
                  steps_per_dispatch: int = 4, train_per_step: int = 1):
         cfg = config or ApexConfig()
+        if int(np.prod(cfg.learner.mesh_shape)) > 1:
+            raise NotImplementedError(
+                f"FusedStep's dp (learner.mesh_shape="
+                f"{cfg.learner.mesh_shape}): not ported yet, ROADMAP "
+                f"slice 14")
         # an env without a device port refuses here, before anything is
         # built on the card
         make_device_env(cfg.env.env_id, cfg.env, device="cpu")

@@ -27,14 +27,24 @@ class PERMethods:
                                            priorities.max())
         return state
 
-    def is_weights(self, state, idx: torch.Tensor,
-                   beta: float) -> torch.Tensor:
+    def is_weights(self, state, idx: torch.Tensor, beta: float,
+                   group=None) -> torch.Tensor:
         """IS weights normalized by the max weight, which comes from the
-        min-priority leaf (``memory.py:252-298``)."""
+        min-priority leaf (``memory.py:252-298``).
+
+        ``group`` (a :class:`~apex_tpu_torch.parallel.mesh.DpGroup`): the
+        state is one rank's replay shard, sampled on its own, so a
+        transition's true inclusion probability is ``leaf / (n_shards *
+        shard_total)``; the local total and local size reproduce exactly
+        that, and only the max-weight normalizer is taken over the ranks
+        (one MAX all-reduce), so every shard scales its loss terms alike
+        (``apex_tpu/replay/base.py:36-59``)."""
         total = tree_ops.tree_total(state.sum_tree)
         size = float(state.size)
         p_min = tree_ops.tree_min(state.min_tree) / total
         max_weight = (p_min * size) ** (-beta)
+        if group is not None:
+            max_weight = group.all_reduce_max_(max_weight)
         p_sample = tree_ops.get_leaves(state.sum_tree, idx) / total
         return ((p_sample * size) ** (-beta) / max_weight).float()
 

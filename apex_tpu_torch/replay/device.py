@@ -95,10 +95,10 @@ class DeviceReplay(PERMethods):
     # update_priorities / is_weights / _to_tree_priority: PERMethods.
 
     def sample(self, state: ReplayState, offsets: torch.Tensor,
-               beta: float):
+               beta: float, group=None):
         """Stratified PER sample with one uniform per stratum
         (``offsets`` f32[B] in [0, 1)); returns ``(batch, weights, idx)``."""
         idx = tree_ops.stratified_sample(state.sum_tree, offsets, state.size)
         batch = {name: rows[idx] for name, rows in state.storage.items()}
-        weights = self.is_weights(state, idx, beta)
+        weights = self.is_weights(state, idx, beta, group)
         return batch, weights, idx

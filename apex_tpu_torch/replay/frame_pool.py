@@ -242,14 +242,16 @@ class FramePoolReplay(PERMethods):
     # -- sampling ----------------------------------------------------------
 
     def sample(self, state: FramePoolState, offsets: torch.Tensor,
-               beta: float):
+               beta: float, group=None):
         """Stratified PER sample with one uniform per stratum
         (``offsets`` f32[B] in [0, 1)); returns ``(batch, weights, idx)``
         with stacks gathered from the frame ring.
 
         Staleness guard: transitions whose chunk's frames have aged out of
         the ring are redirected to the newest slot.  The int32 epoch
-        difference wraps like the JAX one, safe for ages < 2^31.
+        difference wraps like the JAX one, safe for ages < 2^31.  With a dp
+        ``group`` the state is one rank's shard and the IS weights take the
+        normalizer over the ranks (:meth:`PERMethods.is_weights`).
         """
         idx = tree_ops.stratified_sample(state.sum_tree, offsets, state.size)
         age = state.f_epoch - state.frame_epoch[idx]
@@ -268,5 +270,5 @@ class FramePoolReplay(PERMethods):
             obs_pair=stacks,
             **{name: state.extras[name][idx] for name, _ in self.extra_spec},
         )
-        weights = self.is_weights(state, idx, beta)
+        weights = self.is_weights(state, idx, beta, group)
         return batch, weights, idx

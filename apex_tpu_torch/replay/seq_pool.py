@@ -200,7 +200,7 @@ class SequenceFramePoolReplay(PERMethods):
     # -- sampling ----------------------------------------------------------
 
     def sample(self, state: SequenceFramePoolState, offsets: torch.Tensor,
-               beta: float):
+               beta: float, group=None):
         """Stratified PER sample with one uniform per stratum
         (``offsets`` f32[B] in [0, 1)); returns ``(batch, weights, idx)``
         in the stacked sequence layout's schema, ``obs`` gathered
@@ -220,7 +220,7 @@ class SequenceFramePoolReplay(PERMethods):
             state_c=state.state_c[idx],
             state_h=state.state_h[idx],
         )
-        weights = self.is_weights(state, idx, beta)
+        weights = self.is_weights(state, idx, beta, group)
         return batch, weights, idx
 
     def _gather_sequences(self, state: SequenceFramePoolState,

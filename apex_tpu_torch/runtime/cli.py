@@ -69,11 +69,17 @@ the barrier, run on the CPU (they hold no tensors) and tick every
 ``--tenant`` (env twin ``APEX_TENANT``) makes every role of one tenant
 qualify its identities, chunk ids and param topic; a tenant that names an
 ``APEX_POPULATION`` lineage adopts that lineage's env id and
-hyperparameters.  ``--mesh-dp`` above 1 exits with status 2 naming its
-ROADMAP item (4); the Atari wrapper switches are not in the parser.
-Beside ``--device`` the parser has one flag the JAX one lacks,
+hyperparameters.  ``--mesh-dp N`` runs the learner-side roles' learner
+as N ranks of :mod:`apex_tpu_torch.parallel` (0: one per visible card,
+at least one); ``--rollout ondevice|fused`` and ``--replay-shards``
+with ``--mesh-dp`` above 1 exit with status 2 naming ROADMAP slice 14,
+and so does ``--checkpoint-dir`` (the trainer refuses it when built).
+The Atari wrapper switches are not in the
+parser.  Beside ``--device`` the parser has two flags the JAX one lacks:
 ``--send-interval`` (env twin ``APEX_SEND_INTERVAL``), the actors' chunk
-size.
+size, and ``--dp-backend`` (env twin ``APEX_DP_BACKEND``, ``nccl`` by
+default: one card per rank; ``gloo`` runs every rank on the learner's
+card), which one card forces.
 """
 
 from __future__ import annotations
@@ -342,8 +348,16 @@ def build_parser() -> argparse.ArgumentParser:
                         "APEX_SAVE_INTERVAL)")
     p.add_argument("--mesh-dp", type=int,
                    default=int(e.get("APEX_MESH_DP", 0)),
-                   help="learner dp degree; the port runs one card (0 and "
-                        "1), a sharded learner is not ported yet")
+                   help="learner dp degree: this many ranks, each with its "
+                        "own replay shard, mean their gradients; 0 = one "
+                        "per visible card (learner/apex roles), 1 = one "
+                        "rank")
+    p.add_argument("--dp-backend", choices=["nccl", "gloo"],
+                   default=e.get("APEX_DP_BACKEND", "nccl"),
+                   help="the dp group's backend (env twin APEX_DP_BACKEND): "
+                        "nccl puts rank r on cuda:r and needs a card per "
+                        "rank; gloo runs every rank on the learner's "
+                        "device")
     p.add_argument("--total-steps", type=int, default=1_000_000)
     p.add_argument("--total-frames", type=int, default=1_000_000)
     p.add_argument("--max-seconds", type=float, default=86400.0)
@@ -401,6 +415,18 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _mesh_shape(args: argparse.Namespace) -> tuple[int, ...]:
+    """The learner's dp degree; 0 = one rank per visible card on the
+    learner-side roles (at least one), 1 elsewhere (``cli.py:396-406``)."""
+    dp = args.mesh_dp
+    if dp == 0:
+        dp = 1
+        if args.role in ("learner", "apex"):
+            import torch
+            dp = max(1, torch.cuda.device_count())
+    return (dp,)
+
+
 def config_from_args(args: argparse.Namespace) -> ApexConfig:
     return ApexConfig(
         env=EnvConfig(env_id=args.env_id, seed=args.seed,
@@ -413,7 +439,8 @@ def config_from_args(args: argparse.Namespace) -> ApexConfig:
                               gamma=args.gamma, n_steps=args.n_steps,
                               target_update_interval=
                               args.target_update_interval,
-                              save_interval=args.save_interval),
+                              save_interval=args.save_interval,
+                              mesh_shape=_mesh_shape(args)),
         actor=ActorConfig(n_actors=args.n_actors,
                           n_envs_per_actor=args.n_envs_per_actor,
                           send_interval=args.send_interval,
@@ -459,9 +486,16 @@ def _refuse(what: str) -> int:
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
-    if args.mesh_dp > 1:
-        return _refuse(f"--mesh-dp {args.mesh_dp}: the sharded learner is "
-                       f"not ported yet: ROADMAP item 4 (torch.distributed)")
+    if args.mesh_dp > 1 and args.role in ("learner", "apex"):
+        # refused here, before a socket binds or a card is touched; the
+        # trainers refuse the same paths (and checkpoints) when built
+        unported = [what for what, on in (
+            (f"--rollout {args.rollout}", args.rollout != "host"),
+            ("--replay-shards", args.replay_shards > 0)) if on]
+        if unported:
+            return _refuse(f"{' and '.join(unported)} with --mesh-dp "
+                           f"{args.mesh_dp}: not ported to the sharded "
+                           f"learner yet: ROADMAP slice 14")
     if args.restore and not args.checkpoint_dir:
         raise SystemExit("--restore requires --checkpoint-dir")
     if args.trace_dir:
@@ -531,7 +565,8 @@ def _dispatch(args: argparse.Namespace, cfg: ApexConfig,
                 device=args.device,
                 rollout_len=args.rollout_len or None,
                 steps_per_dispatch=args.steps_per_dispatch,
-                stop_event=_stop_on_sigterm(sigint=True))
+                stop_event=_stop_on_sigterm(sigint=True),
+                dp_backend=args.dp_backend)
         finally:
             signal.signal(signal.SIGINT, prev_sigint)
             stats = {"gather_launches": dict(LAUNCH_COUNTS)}
@@ -540,6 +575,12 @@ def _dispatch(args: argparse.Namespace, cfg: ApexConfig,
                           "ingested": trainer.ingested,
                           "service_steps": getattr(trainer, "service_steps",
                                                    0)}
+                if getattr(trainer, "dp_rank_stats", None):
+                    stats["dp_ranks"] = {
+                        str(r): {k: rec.get(k) for k in
+                                 ("steps", "gather_launches",
+                                  "replay_size")}
+                        for r, rec in trainer.dp_rank_stats.items()}
             print(f"learner: stats {json.dumps(stats)}", flush=True)
     elif args.role in ("replay", "infer", "loadgen"):
         _run_service(args, cfg, identity)
@@ -712,6 +753,8 @@ def _run_driver(args: argparse.Namespace, cfg: ApexConfig) -> None:
                 f"{args.family!r}); aql/r2d2 stay on the host pipeline")
         kw |= dict(train_ratio=args.train_ratio,
                    min_train_ratio=args.min_train_ratio)
+        if args.rollout == "host":
+            kw["dp_backend"] = args.dp_backend
         if args.family == "aql":
             from apex_tpu_torch.training.aql import AQLApexTrainer as cls
         elif args.family == "r2d2":

@@ -226,7 +226,8 @@ def run_learner(cfg: ApexConfig, n_peers: int, total_steps: int,
                 rollout: str = "host", device: str | torch.device = "cuda",
                 publish_min_seconds: float = 0.2, log_every: int = 200,
                 rollout_len: int | None = None,
-                steps_per_dispatch: int = 4, stop_event=None):
+                steps_per_dispatch: int = 4, stop_event=None,
+                dp_backend: str = "nccl"):
     """Learner role: barrier, publish, then the concurrent learner loop
     over socket-delivered chunks.  ``n_peers`` = actors + evaluators
     expected at the startup barrier (``learner.py:48-49``).  Returns the
@@ -251,7 +252,13 @@ def run_learner(cfg: ApexConfig, n_peers: int, total_steps: int,
     heartbeats and the actors' fallback chunks.
 
     ``stop_event``: setting it makes ``train()`` return at its next loop
-    iteration (the CLI sets it on SIGTERM, so the role exits 0)."""
+    iteration (the CLI sets it on SIGTERM, so the role exits 0).
+
+    With ``learner.mesh_shape`` above 1 this process is rank 0 of the
+    sharded learner: its ``train()`` spawns the other ranks
+    (``dp_backend`` for the dp group).  The trainer refuses what the
+    sharded plan does not take yet (ROADMAP slice 14) and a batch the dp
+    degree does not divide, when it is built."""
     if rollout not in ("host", "ondevice", "fused"):
         raise ValueError(f"unknown rollout {rollout!r}")
     _check_family(family)
@@ -296,6 +303,8 @@ def run_learner(cfg: ApexConfig, n_peers: int, total_steps: int,
             from apex_tpu_torch.training.aql import AQLApexTrainer as cls
         else:
             from apex_tpu_torch.training.r2d2 import R2D2ApexTrainer as cls
+        if rollout != "fused":
+            kw["dp_backend"] = dp_backend
         trainer = cls(cfg, pool=pool, **kw)
         if stop_event is not None:
             trainer._stop_requested = stop_event

@@ -76,14 +76,34 @@ restore_weights` imposes a donor checkpoint's ``train_state`` and bumps
 the learner epoch, :meth:`~ConcurrentTrainer.apply_hparams` changes the
 live lr and the IS beta.
 
-Not ported yet: the sharded plan.  Where the JAX trainer splits
-a PRNG key per dispatch, this one draws the PER sample's uniforms from a
-``torch.Generator`` on the learner's device, on the learner thread, in
-the same order on both paths.
+The sharded plan (``apex.py:227-286``; ``learner.mesh_shape`` above 1):
+``train()`` runs ``prod(mesh_shape)`` ranks of
+:mod:`apex_tpu_torch.parallel`.  This process is rank 0, the driver: it
+polls the pool through a :class:`~apex_tpu_torch.parallel.aggregate.
+ChunkAggregator` (one chunk per rank per group), publishes, logs and
+serves the ctl surface.  Ranks 1..N-1 are processes spawned by
+``train()``, each with a trainer of the same class and config, its own
+replay shard and a :class:`~apex_tpu_torch.parallel.learner.NoActors`
+pool; they run :meth:`ConcurrentTrainer._follow`, taking each op (``fused``
+/ ``train`` / ``ingest`` / ``apply_hparams`` / ``restore`` / ``stop``)
+with its chunk, beta and uniforms from rank 0 over the host group and
+running the same body.  The ranks live for one ``train()`` call: a dead
+rank makes ``train()`` raise, and none outlives it.  ``dp_backend``
+(``"nccl"``, one card per rank, or ``"gloo"``, every rank on rank 0's
+card) is the dp group's.  Checkpoints need the replay shards gathered
+and are not written at dp > 1 (ROADMAP slice 14).
+
+Where the JAX trainer splits a PRNG key per dispatch, this one draws the
+PER sample's uniforms from a ``torch.Generator`` on the learner's device,
+on the learner thread, in the same order on both paths (at dp > 1 from
+one host generator per rank, :class:`~apex_tpu_torch.training.
+ingest_pipeline.UniformPrefetcher`).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
 import threading
 import time
 
@@ -101,13 +121,21 @@ from apex_tpu_torch.models.dueling import (DuelingDQN, host_params,
                                            make_policy_fn)
 from apex_tpu_torch.obs import spans as obs_spans
 from apex_tpu_torch.obs.trace import get_ring, set_process_label
+from apex_tpu_torch.ops.gather import LAUNCH_COUNTS
 from apex_tpu_torch.ops.losses import make_optimizer
+from apex_tpu_torch.parallel.aggregate import ChunkAggregator, split_group
+from apex_tpu_torch.parallel.learner import (NoActors, ShardedLearner,
+                                             per_rank_batch)
+from apex_tpu_torch.parallel.mesh import (DEFAULT_TIMEOUT_S, RankProcesses,
+                                          check_backend, init_dp,
+                                          per_rank_seed, rank_device)
 from apex_tpu_torch.population import controller as population_ctl
 from apex_tpu_torch.population.controller import PopulationStat
 from apex_tpu_torch.ops.tree import stratified_offsets
 from apex_tpu_torch.replay.base import check_hbm_budget
 from apex_tpu_torch.replay.frame_chunks import FRAME_MARGIN
 from apex_tpu_torch.replay.frame_pool import FramePoolReplay
+from apex_tpu_torch.runtime import wire
 from apex_tpu_torch.runtime.codec import KeyframeRequest
 from apex_tpu_torch.serving import deploy as serving_deploy
 from apex_tpu_torch.serving.deploy import ServingStat
@@ -119,11 +147,45 @@ from apex_tpu_torch.training.checkpoint import (CheckpointableTrainer,
 from apex_tpu_torch.replay_service.shard import batch_from_wire
 from apex_tpu_torch.training.ingest_pipeline import (IngestPipeline,
                                                      PipelineState,
-                                                     StagedSlot, _pow2_floor)
+                                                     StagedSlot,
+                                                     UniformPrefetcher,
+                                                     _pow2_floor)
 from apex_tpu_torch.training.learner import LearnerCore
 from apex_tpu_torch.training.state import create_train_state
 from apex_tpu_torch.utils.metrics import MetricLogger, RateCounter
 from apex_tpu_torch.utils.profiling import DispatchGapTimer
+
+
+#: seconds of quiet after which rank 0 sends the other ranks a no-op (they
+#: wait for its next op in a collective with a timeout)
+DP_KEEPALIVE_S = 2.0
+#: seconds rank 0 waits for the other ranks to build their learners
+DP_START_TIMEOUT_S = 600.0
+_NO_SHARDED_CHECKPOINT = (
+    "checkpoints of a sharded learner (learner.mesh_shape above 1) need "
+    "its replay shards gathered into JAX's stacked layout: not ported "
+    "yet, ROADMAP slice 14")
+
+
+def _dp_follower_main(store, rank: int, world: int, cls, cfg: ApexConfig,
+                      backend: str, device: str, timeout_s: float) -> None:
+    """A rank >= 1 of the sharded plan (spawned by
+    :meth:`ConcurrentTrainer._start_ranks`): a trainer of rank 0's class
+    and config on this rank's device with no actors, joined to the dp
+    group, following rank 0's ops until ``stop``; its counters go to the
+    store as ``stats/<rank>``."""
+    one = cfg.replace(learner=dataclasses.replace(cfg.learner,
+                                                  mesh_shape=(1,)))
+    trainer = cls(one, pool=NoActors(),
+                  device=rank_device(rank, backend, device),
+                  respawn_workers=False)
+    store.set(f"ready/{rank}", "1")
+    group = init_dp(world, rank, backend=backend, store=store,
+                    timeout=timeout_s, device=device)
+    trainer._join_dp(group)
+    trainer._follow()
+    store.set(f"stats/{rank}", json.dumps(trainer._dp_stats()))
+    group.close()
 
 
 def dqn_env_specs(cfg: ApexConfig):
@@ -192,6 +254,19 @@ class ConcurrentTrainer(CheckpointableTrainer):
     _ctl_queue = None
     _population_ctl: dict | None = None
     hparams_live: dict | None = None
+    # the sharded plan (learner.mesh_shape above 1): the dp degree and
+    # backend; this rank's group and ShardedLearner steps while the ranks
+    # run; rank 0's handle on the other ranks' processes during train();
+    # the per-rank records of the last sharded train()
+    n_dp = 1
+    dp_backend = "nccl"
+    _dp = None
+    _sharded = None
+    _ranks = None
+    _uniforms: UniformPrefetcher | None = None
+    _dp_trained = False
+    _dp_last_op = 0.0
+    dp_rank_stats: dict | None = None
 
     def _init_loop(self, train_ratio, min_train_ratio, publish_min_seconds,
                    respawn_workers, logdir, verbose, checkpoint_dir) -> None:
@@ -278,6 +353,189 @@ class ConcurrentTrainer(CheckpointableTrainer):
         return (self._ingested_effective() * self.train_ratio
                 / self.core.batch_size)
 
+    # -- the sharded plan (apex.py:227-286) ---------------------------------
+
+    def _init_sharded(self, dp_backend: str) -> None:
+        """dp > 1 (``prod(learner.mesh_shape)``): wrap the pool in a
+        :class:`~apex_tpu_torch.parallel.aggregate.ChunkAggregator`, set up
+        the per-rank uniform generators and check what can be checked
+        before ``train()``: the backend and the cards it needs, the
+        batch's divisibility by dp, no checkpoint directory.  Each
+        subclass calls it once its core, pool and loop are built."""
+        n = int(np.prod(self.cfg.learner.mesh_shape))
+        if n <= 1:
+            return
+        if getattr(self.pool, "accepts_device_params", False):
+            raise NotImplementedError(
+                "rollouts on the card (AnakinPool) with a sharded learner: "
+                "not ported yet, ROADMAP slice 14")
+        check_backend(n, dp_backend, self.device)
+        per_rank = per_rank_batch(self.core.batch_size, n)
+        if self.checkpointer is not None:
+            raise NotImplementedError(_NO_SHARDED_CHECKPOINT)
+        self.n_dp, self.dp_backend = n, dp_backend
+        self.scan_steps = 1        # no multi-step dispatch on the dp plan
+        self.pool = ChunkAggregator(self.pool, n)
+        seed = self.cfg.env.seed + 1
+        self._uniforms = UniformPrefetcher(
+            [torch.Generator().manual_seed(per_rank_seed(seed, r))
+             for r in range(n)], per_rank)
+
+    def _check_sharded_train(self) -> None:
+        if self.replay_client is not None:
+            raise NotImplementedError(
+                "the replay service's batches on a sharded learner "
+                "(learner.mesh_shape above 1): not ported yet, ROADMAP "
+                "slice 14")
+        if self._dp_trained:
+            raise RuntimeError(
+                "a sharded trainer trains once: its other ranks' replay "
+                "shards end with the train() call that started them; "
+                "build a new trainer (ROADMAP slice 14)")
+
+    def _start_ranks(self) -> None:
+        """Spawn ranks 1..N-1, wait until each has built its learner, join
+        the groups as rank 0 and hand every rank rank 0's train state.
+        The caller stops them if this raises."""
+        ranks = self._ranks = RankProcesses(
+            self.n_dp, _dp_follower_main,
+            (type(self), self.cfg, self.dp_backend, str(self.device),
+             DEFAULT_TIMEOUT_S))
+        ranks.wait_ready(DP_START_TIMEOUT_S)
+        group = init_dp(self.n_dp, 0, backend=self.dp_backend,
+                        store=ranks.store, device=self.device)
+        self._join_dp(group)
+        self._dp_sync()
+
+    def _stop_ranks(self, graceful: bool) -> None:
+        """Stop the other ranks (a ``stop`` op first when ``graceful`` and
+        all are alive), collect their records into ``dp_rank_stats`` and
+        leave no rank process behind."""
+        ranks = self._ranks
+        if ranks is None:
+            return
+        try:
+            if graceful and self._dp is not None and not ranks.failures():
+                self._dp_send("stop")
+        finally:
+            ranks.stop(timeout_s=30.0 if graceful else 2.0)
+            own = self._dp_stats() if self._dp is not None else {}
+            self.dp_rank_stats = {0: own, **ranks.rank_stats()}
+            if self._dp is not None:
+                self._dp.close()
+            self._ranks = self._dp = self._sharded = None
+
+    def _join_dp(self, group) -> None:
+        """Take ``group`` as this rank's; ranks >= 1 reseed the learner's
+        generator (AQL's NoisyNet draws) from the run's seed and rank."""
+        self._dp = group
+        if group.rank != 0:
+            self.generator.manual_seed(
+                per_rank_seed(self.cfg.env.seed + 1, group.rank))
+        self._make_sharded_fns()
+
+    def _make_sharded_fns(self) -> None:
+        """(Re)build this rank's sharded steps over the current core."""
+        sl = self._sharded = ShardedLearner(self.core, self._dp)
+        self._sl_fused = sl.make_fused_step()
+        self._sl_train = sl.make_train_step()
+        self._sl_ingest = sl.make_ingest()
+
+    def _dp_send(self, op: str, per_rank=None, **fields) -> None:
+        """Rank 0: one op to every other rank (``per_rank[r - 1]`` merged
+        into rank r's message)."""
+        msgs = [None]
+        for r in range(1, self.n_dp):
+            msg = {"op": op, **fields}
+            if per_rank is not None:
+                msg.update(per_rank[r - 1])
+            msgs.append(msg)
+        self._dp.send_ops(msgs)
+        self._dp_last_op = time.monotonic()
+
+    def _dp_dispatch(self, op: str, payload=None, prios=None, remote=()):
+        """Rank 0's half of one sharded dispatch: the op, beta and each
+        rank's uniforms and chunk to the other ranks, then the same body
+        here.  Returns the step's metrics (meaned over the ranks) or
+        None."""
+        if self._dp is None:
+            raise RuntimeError("the dp ranks run inside train()")
+        self._dp_trained = True     # the other ranks' shards take data
+        beta = self._beta()
+        offsets = self._uniforms.take() if op != "ingest" else None
+        self._dp_send(op, beta=beta, per_rank=[
+            {"offsets": None if offsets is None else offsets[r],
+             "chunk": remote[r - 1] if remote else None}
+            for r in range(1, self.n_dp)])
+        return self._dp_body(op, payload, prios,
+                             None if offsets is None else offsets[0], beta)
+
+    def _dp_body(self, op: str, payload, prios, offsets, beta: float):
+        """One rank's body of a sharded dispatch."""
+        if op == "fused":
+            self.train_state, self.replay_state, metrics = self._sl_fused(
+                self.train_state, self.replay_state, payload, prios,
+                offsets, beta)
+            return metrics
+        if op == "train":
+            self.train_state, self.replay_state, metrics = self._sl_train(
+                self.train_state, self.replay_state, offsets, beta)
+            return metrics
+        self.replay_state = self._sl_ingest(self.replay_state, payload,
+                                            prios)
+        return None
+
+    def _dp_sync(self) -> None:
+        """Rank 0: every rank takes this rank's train state."""
+        numbers = self._sharded.train_state_numbers(self.train_state)
+        self._dp_send("restore", numbers=numbers)
+        self._sharded.sync_train_state_(self.train_state)
+
+    def _follow(self) -> None:
+        """A rank >= 1's loop: rank 0's ops until ``stop``."""
+        while True:
+            msg = self._dp.recv_op()
+            op = msg["op"]
+            if op == "stop":
+                return
+            if op == "noop":
+                continue
+            if op == "restore":
+                self._sharded.sync_train_state_(self.train_state,
+                                                msg["numbers"])
+            elif op == "apply_hparams":
+                self.apply_hparams(msg["hparams"])
+            else:
+                chunk = msg.get("chunk")
+                if isinstance(chunk, bytes):
+                    chunk = wire.restricted_loads(chunk)
+                payload, prios = chunk if chunk is not None else (None,
+                                                                  None)
+                self._dp_body(op, payload, prios, msg.get("offsets"),
+                              msg["beta"])
+                self.dispatches[op] += 1
+                if op != "ingest":
+                    self.steps_rate.tick()
+
+    def _dp_stats(self) -> dict:
+        """This rank's record: its gather launches, steps, dispatches,
+        shard size, collective counters and the device's peak bytes."""
+        dev = self._dp.device
+        peak = (torch.cuda.max_memory_allocated(dev)
+                if dev.type == "cuda" else 0)
+        return {"rank": self._dp.rank,
+                "gather_launches": dict(LAUNCH_COUNTS),
+                "steps": self.steps_rate.total,
+                "dispatches": dict(self.dispatches),
+                "replay_size": int(self.replay_state.size),
+                "collectives": dict(self._dp.stats),
+                "peak_bytes": int(peak)}
+
+    def restore(self, path: str | None = None):
+        if self.n_dp > 1:
+            raise NotImplementedError(_NO_SHARDED_CHECKPOINT)
+        return super().restore(path)
+
     # -- main loop ---------------------------------------------------------
 
     def train(self, total_steps: int, max_seconds: float = 3600.0,
@@ -291,6 +549,8 @@ class ConcurrentTrainer(CheckpointableTrainer):
         cfg = self.cfg
         pool = self.pool
         client = self.replay_client
+        if self.n_dp > 1:
+            self._check_sharded_train()
         target_steps = self.steps_rate.total + total_steps
         set_process_label("learner")
         ring = get_ring()
@@ -309,12 +569,18 @@ class ConcurrentTrainer(CheckpointableTrainer):
                 state_fn=self._pipeline_state,
                 capacity=self.replay.capacity,
                 frame_capacity=getattr(self.replay, "f_capacity", None),
-                replay_client=client)
+                replay_client=client, n_dp=self.n_dp,
+                uniforms=self._uniforms)
             self._pipeline_base = self.ingested
         try:
+            if self.n_dp > 1:
+                # the ranks first: a rank that cannot start fails train()
+                # before any actor is spawned
+                self._start_ranks()
             pool.start()
         except BaseException:
             self._pipeline = None      # never started; publish serially
+            self._stop_ranks(graceful=False)
             raise
         # a socket pool stamps its publishes with this life's epoch, so a
         # parked actor tells a restarted learner from a stalled one
@@ -326,6 +592,7 @@ class ConcurrentTrainer(CheckpointableTrainer):
             # life's write-backs and forgive its outstanding batches
             client.learner_epoch = self.learner_epoch
         self._start_status_server()
+        finished = False
         try:
             if pipeline is not None:
                 # the staging thread owns every poll_chunks call from here
@@ -338,11 +605,17 @@ class ConcurrentTrainer(CheckpointableTrainer):
             last_pub_step = self.steps_rate.total
             last_health = last_publish
             metrics = None
+            last_rank_check = last_publish
             while self.steps_rate.total < target_steps:
                 now = time.monotonic()
                 stop = self._stop_requested
                 if now > t_end or (stop is not None and stop.is_set()):
                     break
+                if self._ranks is not None and now - last_rank_check >= 0.5:
+                    # a dead rank fails train() here, not in a collective
+                    # that waits out its timeout
+                    self._ranks.check()
+                    last_rank_check = now
                 # warm gates the learner's own pool; in service mode it
                 # fills only through the actors' fallback chunks
                 warm = self.ingested >= cfg.replay.warmup
@@ -397,10 +670,14 @@ class ConcurrentTrainer(CheckpointableTrainer):
                             metrics = m
                 if not got_data and warm and steps < budget:
                     gap.about_to_dispatch()
-                    self.train_state, self.replay_state, metrics = \
-                        self.core.train_step(self.train_state,
-                                             self.replay_state,
-                                             self._offsets(), self._beta())
+                    if self.n_dp > 1:
+                        metrics = self._dp_dispatch("train")
+                    else:
+                        self.train_state, self.replay_state, metrics = \
+                            self.core.train_step(self.train_state,
+                                                 self.replay_state,
+                                                 self._offsets(),
+                                                 self._beta())
                     gap.dispatch_returned()
                     self.dispatches["train"] += 1
                     self.steps_rate.tick()
@@ -459,6 +736,11 @@ class ConcurrentTrainer(CheckpointableTrainer):
                            "ingested": self._ingested_effective()} | extra,
                         steps)
                     self._last_log = steps
+                if (self._dp is not None
+                        and now - self._dp_last_op >= DP_KEEPALIVE_S):
+                    # the other ranks wait in a collective with a timeout
+                    self._dp_send("noop")
+            finished = True
         finally:
             if pipeline is not None:
                 # stop staging before the pool's teardown: the staging
@@ -471,6 +753,7 @@ class ConcurrentTrainer(CheckpointableTrainer):
                 self._fleet_status = None
             self._dump_fleet_summary()      # the final registry view
             pool.cleanup()
+            self._stop_ranks(graceful=finished)
             stop = self._stop_requested
             if stop is not None:
                 stop.clear()       # a request is honoured once, at exit
@@ -932,6 +1215,8 @@ class ConcurrentTrainer(CheckpointableTrainer):
         _set_numbers(ts.opt_state, saved["opt_state"])
         ts.step = saved["step"]
         self.learner_epoch += 1
+        if self._dp is not None:
+            self._dp_sync()           # every rank takes the donor's state
         return meta
 
     def apply_hparams(self, h: dict) -> dict:
@@ -943,7 +1228,6 @@ class ConcurrentTrainer(CheckpointableTrainer):
         anneal the next :meth:`_beta` reads.  Every field given is
         recorded in ``hparams_live``; the acting-side ones apply to the
         lineage's next workers.  Returns the fields applied live."""
-        import dataclasses
         applied: dict = {}
         lr = h.get("lr")
         if lr is not None and type(self.core) is LearnerCore:
@@ -953,6 +1237,9 @@ class ConcurrentTrainer(CheckpointableTrainer):
             self.cfg = self.cfg.replace(learner=dataclasses.replace(
                 self.cfg.learner, lr=float(lr)))
             applied["lr"] = float(lr)
+            if self._dp is not None:
+                # the sharded steps closed over the old core
+                self._make_sharded_fns()
         beta = h.get("prio_beta")
         if beta is not None:
             self.cfg = self.cfg.replace(replay=dataclasses.replace(
@@ -961,6 +1248,9 @@ class ConcurrentTrainer(CheckpointableTrainer):
         recorded = {k: v for k, v in h.items() if v is not None}
         if recorded:
             self.hparams_live = {**(self.hparams_live or {}), **recorded}
+        if self._dp is not None and self._dp.rank == 0:
+            # every rank rebuilds its optimizer (apex.py:1118-1122)
+            self._dp_send("apply_hparams", hparams=dict(h))
         return applied
 
     # -- dispatch ----------------------------------------------------------
@@ -991,13 +1281,25 @@ class ConcurrentTrainer(CheckpointableTrainer):
         self.frames_rate.tick(sum(n_per))
         return {name: v.mean() for name, v in stacked.items()}
 
-    def _dispatch_one(self, payload, prios, n_trans: int, train: bool):
-        """The fused step (``train``) or ingest only, of one payload.
-        Returns the step's metrics or None."""
+    def _dispatch_one(self, payload, prios, n_trans: int, train: bool,
+                      remote=None):
+        """The fused step (``train``) or ingest only, of one payload.  At
+        dp > 1 the payload is a group (or, staged, rank 0's part of one
+        with ``remote`` the others'), dispatched on every rank.  Returns
+        the step's metrics or None."""
         gap = self._dispatch_gap
         metrics = None
         gap.about_to_dispatch()
-        if train:
+        if self.n_dp > 1:
+            if remote is None:
+                parts = split_group(payload, prios, self.n_dp)
+                (payload, prios), remote = parts[0], parts[1:]
+            metrics = self._dp_dispatch("fused" if train else "ingest",
+                                        payload, prios, remote)
+            self.dispatches["fused" if train else "ingest"] += 1
+            if train:
+                self.steps_rate.tick()
+        elif train:
             self.train_state, self.replay_state, metrics = \
                 self.core.fused_step(
                     self.train_state, self.replay_state, payload, prios,
@@ -1131,7 +1433,8 @@ class ConcurrentTrainer(CheckpointableTrainer):
         train = (slot.kind == "single" and warm
                  and self.steps_rate.total < budget)
         return self._dispatch_one(slot.payload, slot.prios, slot.n_trans,
-                                  train)
+                                  train,
+                                  slot.remote if self.n_dp > 1 else None)
 
     # -- the replay service (apex.py:1219-1315) ----------------------------
 
@@ -1206,7 +1509,10 @@ class ApexTrainer(ConcurrentTrainer):
     respawned, the fleet registry and SLOs judged); ``logdir``
     and ``verbose`` go to the :class:`MetricLogger`; ``checkpoint_dir``
     turns on the saves of :meth:`train` and names where
-    :meth:`save_checkpoint` writes.
+    :meth:`save_checkpoint` writes.  With ``learner.mesh_shape`` above 1
+    :meth:`train` runs the sharded plan (module docstring) with
+    ``dp_backend`` for the dp group: ``"nccl"`` needs a card per rank,
+    ``"gloo"`` runs every rank on this trainer's device.
     """
 
     def __init__(self, config: ApexConfig | None = None, pool=None,
@@ -1216,7 +1522,8 @@ class ApexTrainer(ConcurrentTrainer):
                  publish_min_seconds: float = 0.2,
                  min_train_ratio: float | None = None,
                  respawn_workers: bool = True,
-                 checkpoint_dir: str | None = None):
+                 checkpoint_dir: str | None = None,
+                 dp_backend: str = "nccl"):
         self.device = resolve_device(device)
         self.cfg = cfg = config or ApexConfig()
         self.model_spec, frame_shape, frame_dtype, frame_stack = \
@@ -1258,6 +1565,7 @@ class ApexTrainer(ConcurrentTrainer):
         self.replay_state = self.replay.init(self.device)
         self._init_loop(train_ratio, min_train_ratio, publish_min_seconds,
                         respawn_workers, logdir, verbose, checkpoint_dir)
+        self._init_sharded(dp_backend)
 
     def evaluate(self, episodes: int = 10, epsilon: float = 0.0,
                  max_steps: int = 10_000) -> float:

@@ -25,9 +25,12 @@ Counterpart of :mod:`apex_tpu.training.aql` (``aql.py:56-578``; reference
 Where the JAX steps take PRNG keys, the PER sample takes per-stratum
 uniforms and the NoisyNet and acting draws come from an
 :class:`~apex_tpu_torch.models.aql.AQLDraws` over the learner's
-``torch.Generator``.  Entry points default to ``"cuda"``.  Not ported: the
-sharded learner (the port's config has no mesh, ROADMAP item 4).  The
-learner role builds :class:`AQLApexTrainer` over sockets
+``torch.Generator``.  Entry points default to ``"cuda"``.  With
+``learner.mesh_shape`` above 1, :class:`AQLApexTrainer` runs the sharded
+plan of :class:`~apex_tpu_torch.training.apex.ConcurrentTrainer`, each
+rank drawing its NoisyNet noise from a generator of its own
+(:func:`~apex_tpu_torch.parallel.mesh.per_rank_seed`).  The learner role
+builds :class:`AQLApexTrainer` over sockets
 (:func:`apex_tpu_torch.runtime.roles.run_learner`); remote policy serves
 the DQN family only, as in the reference.
 """
@@ -74,12 +77,18 @@ class AQLCore(LearnerCore):
     draws: AQLDraws | None = None
 
     def update_from_batch(self, train_state: TrainState, batch: dict,
-                          weights: torch.Tensor):
+                          weights: torch.Tensor, group=None):
         """Both losses -> per-group grads -> two-group clip + Adam ->
         target sync.  Returns ``(train_state, priorities, metrics)``; the
         metrics are device scalars: ``loss`` (the Q loss),
         ``loss_proposal``, ``grad_norm`` (of the merged unclipped grads),
-        ``q_mean`` and ``td_mean``."""
+        ``q_mean`` and ``td_mean``.
+
+        With a dp ``group`` the q and proposal grads, both losses,
+        ``q_mean`` and ``td_mean`` are meaned over its ranks in one
+        all-reduce before the Adam step (``apex_tpu/training/aql.py:
+        102-119``); each rank's NoisyNet draws come from its own
+        ``draws``."""
         online, target = train_state.params, train_state.target_params
         online_noise = self.draws.noise(online)
         target_noise = self.draws.noise(target)
@@ -91,6 +100,13 @@ class AQLCore(LearnerCore):
         loss_p = aql_proposal_loss(online, batch, aux.best_idx,
                                    self.entropy_coef)
         p_grads = list(torch.autograd.grad(loss_p, groups["proposal"]))
+        loss_p = loss_p.detach()
+        q_mean, td_mean = aux.q_taken.mean(), aux.td_abs.mean()
+        loss_q = aux.loss
+        if group is not None:
+            scalars = torch.stack([loss_q, loss_p, q_mean, td_mean])
+            group.all_reduce_mean_(q_grads + p_grads + [scalars])
+            loss_q, loss_p, q_mean, td_mean = scalars.unbind()
         grad_norm = global_norm(q_grads + p_grads)
         self.optimizer.step(online, {"q": q_grads, "proposal": p_grads},
                             train_state.opt_state)
@@ -100,9 +116,9 @@ class AQLCore(LearnerCore):
             with torch.no_grad():
                 for tgt, src in zip(target.parameters(), online.parameters()):
                     tgt.copy_(src)
-        metrics = {"loss": aux.loss, "loss_proposal": loss_p.detach(),
-                   "grad_norm": grad_norm, "q_mean": aux.q_taken.mean(),
-                   "td_mean": aux.td_abs.mean()}
+        metrics = {"loss": loss_q, "loss_proposal": loss_p,
+                   "grad_norm": grad_norm, "q_mean": q_mean,
+                   "td_mean": td_mean}
         return train_state, aux.priorities, metrics
 
 
@@ -411,7 +427,8 @@ class AQLApexTrainer(ConcurrentTrainer):
                  publish_min_seconds: float = 0.2,
                  min_train_ratio: float | None = None,
                  respawn_workers: bool = True,
-                 checkpoint_dir: str | None = None):
+                 checkpoint_dir: str | None = None,
+                 dp_backend: str = "nccl"):
         from apex_tpu_torch.actors.aql import (aql_worker_main,
                                                vector_aql_worker_main)
 
@@ -447,5 +464,6 @@ class AQLApexTrainer(ConcurrentTrainer):
             pool = ActorPool(cfg, self.model_spec, chunk_transitions=k,
                              worker_fn=worker, shm_slot_bytes=slot)
         self.pool = pool
+        self._init_sharded(dp_backend)
 
     evaluate = aql_evaluate

@@ -243,9 +243,11 @@ def config_to_meta(cfg) -> dict:
 
 def config_from_meta(meta_cfg: dict):
     """The ApexConfig of :func:`config_to_meta` output; keys the port's
-    config does not have (a JAX config's mesh fields, its comms plane's
+    config does not have (a JAX config's ``mesh_axes``, its comms plane's
     status, SLO and tenancy fields) are dropped, and a section or field a
-    bundle lacks (an older port checkpoint's comms) takes its defaults."""
+    bundle lacks (an older port checkpoint's comms) takes its defaults.
+    ``learner.mesh_shape`` is carried, so a bundle saved by a sharded
+    learner reads back with its dp degree."""
     from apex_tpu_torch.config import (ActorConfig, ApexConfig, AQLConfig,
                                        CommsConfig, EnvConfig, LearnerConfig,
                                        R2D2Config, ReplayConfig)

@@ -62,7 +62,22 @@ message (first wins, so the socket receiver's earlier stamp survives),
 slot, publish and write-back is also one event on the ``ingest-staging``
 track of the process's trace ring.
 
-Not ported: the sharded plan (``merge_group_messages``, ``KeyPrefetcher``).
+Sharded plan (``n_dp`` > 1, ``ingest_pipeline.py:55-74``): the pool is a
+:class:`~apex_tpu_torch.parallel.aggregate.ChunkAggregator`, so each polled
+message is one whole round-robin group of ``n_dp`` chunks stacked on a
+leading dp axis, and the pipeline stages group-granular slots:
+
+* a train-eligible group stages as a ``"single"`` slot; an ingest-only
+  run of groups merges per shard (:func:`merge_group_messages`: shard s's
+  chunks merge as the single-shard merge does, then the merged payloads
+  restack on the dp axis), so the bit-parity contract holds per shard;
+* staging splits each group by rank: rank 0's part goes to the device as
+  above, the other ranks' parts are pickled for the host group
+  (``StagedSlot.remote``), so neither lands on the hot loop;
+* the per-rank PER uniforms are drawn ahead by a
+  :class:`UniformPrefetcher` (the role of JAX's ``KeyPrefetcher``: one
+  generator per rank, drawn in dispatch order, refilled on this thread,
+  so pipelined and serial runs consume the same draws).
 """
 
 from __future__ import annotations
@@ -79,6 +94,10 @@ import torch
 from apex_tpu_torch import resolve_device
 from apex_tpu_torch.obs import spans as obs_spans
 from apex_tpu_torch.obs.trace import get_ring
+from apex_tpu_torch.ops.tree import stratified_offsets
+from apex_tpu_torch.parallel.aggregate import (split_group, tree_index,
+                                               tree_stack)
+from apex_tpu_torch.runtime import wire
 
 #: payload keys that identify a self-contained frame chunk
 #: (replay/frame_chunks.py), the only schema merge_chunk_messages takes
@@ -176,6 +195,68 @@ def merge_chunk_messages(msgs: list[dict]) -> dict:
     return out
 
 
+def merge_group_messages(msgs: list[dict], n_dp: int) -> dict:
+    """Merge m stacked round-robin group messages into one sharded ingest
+    message (``apex_tpu/training/ingest_pipeline.py:188-223``).  Shard s
+    takes chunk s of every group, in group order, so its m chunks merge
+    with :func:`merge_chunk_messages` and the ``n_dp`` merged payloads
+    restack on the dp axis: ``add(merge(g1..gm)) == add(g1); ...;
+    add(gm)`` on every shard."""
+    if len(msgs) == 1:
+        return msgs[0]
+    per_shard = []
+    for s in range(n_dp):
+        shard_msgs = [
+            {"payload": tree_index(m["payload"], s),
+             "priorities": np.asarray(m["priorities"])[s],
+             "n_trans": int(np.asarray(m["payload"]["n_trans"])[s])}
+            for m in msgs]
+        per_shard.append(merge_chunk_messages(shard_msgs))
+    payload = tree_stack([p["payload"] for p in per_shard])
+    prios = np.stack([np.asarray(p["priorities"], np.float32)
+                      for p in per_shard])
+    out = {"payload": payload, "priorities": prios,
+           "n_trans": sum(int(p["n_trans"]) for p in per_shard)}
+    spans = obs_spans.merge_spans(msgs)    # metadata, not payload
+    if spans:
+        out[obs_spans.SPAN_KEY] = spans
+    return out
+
+
+class UniformPrefetcher:
+    """Pre-drawn per-rank PER uniforms for the sharded plan, in dispatch
+    order: the role of JAX's ``KeyPrefetcher`` (``ingest_pipeline.py:
+    225-268``), which pre-splits the dispatch key chain into per-chip
+    keys.  ``generators`` holds one host ``torch.Generator`` per rank;
+    entry i is one ``f32[per_rank]`` draw from each, the i-th dispatch's.
+    The staging thread refills between polls; an empty queue draws inline
+    under the same lock, so the sequence never forks."""
+
+    def __init__(self, generators: list, per_rank: int, depth: int = 4):
+        self.generators = list(generators)
+        self.per_rank = per_rank
+        self.depth = max(1, int(depth))
+        self._lock = threading.Lock()
+        self._queue: deque = deque()
+
+    def _gen(self) -> None:
+        self._queue.append([stratified_offsets(self.per_rank, g, "cpu")
+                            .numpy() for g in self.generators])
+
+    def refill(self) -> None:
+        """Top the queue up to ``depth`` (staging-thread side)."""
+        with self._lock:
+            while len(self._queue) < self.depth:
+                self._gen()
+
+    def take(self) -> list:
+        """The next dispatch's uniforms, one array per rank."""
+        with self._lock:
+            if not self._queue:
+                self._gen()
+            return self._queue.popleft()
+
+
 @dataclass
 class PipelineState:
     """Trainer-counter snapshot the staging thread groups by.  ``behind``
@@ -203,7 +284,10 @@ class StagedSlot:
     ``planned_steps`` is the train steps the slot was staged to take.
     On the card, ``ready`` is the event recorded after the slot's copies
     and ``tensors`` holds its device tensors.  ``spans`` are the lineage
-    spans of the slot's source chunks.
+    spans of the slot's source chunks.  In the sharded plan ``payload`` /
+    ``prios`` are rank 0's part of the group and ``remote`` the other
+    ranks' ``(payload, priorities)``, pickled for the host group;
+    ``n_trans`` counts the whole group.
     """
 
     kind: str
@@ -219,6 +303,7 @@ class StagedSlot:
     shard: int = 0
     seq: int = 0
     spans: tuple = ()
+    remote: tuple = ()
 
 
 def _pow2_floor(n: int) -> int:
@@ -231,13 +316,18 @@ class IngestPipeline:
     starts nothing; drive it with :meth:`start` / :meth:`stop`.  One
     producer (the staging thread), one consumer (the trainer loop).
     ``device`` defaults to the card and raises without one unless
-    ``"cpu"`` is asked for."""
+    ``"cpu"`` is asked for.  ``n_dp`` > 1 stages the sharded plan's group
+    slots (no scan slots) and refills ``uniforms``, a
+    :class:`UniformPrefetcher`, between polls."""
 
     def __init__(self, pool, *, device: torch.device | str = "cuda",
                  depth: int = 2, scan_steps: int = 1, merge_max: int = 8,
                  state_fn=None, capacity: int | None = None,
-                 frame_capacity: int | None = None, replay_client=None):
+                 frame_capacity: int | None = None, replay_client=None,
+                 n_dp: int = 1, uniforms: UniformPrefetcher | None = None):
         self.pool = pool
+        self.n_dp = max(1, int(n_dp))
+        self.uniforms = uniforms
         self.client = replay_client
         self._wb_lock = threading.Lock()
         self._wb_q: deque = deque()
@@ -250,7 +340,9 @@ class IngestPipeline:
                 self.device = torch.device("cuda",
                                            torch.cuda.current_device())
             self._stream = torch.cuda.Stream(device=self.device)
-        self.scan_steps = max(1, int(scan_steps))
+        # the sharded plan has no multi-step dispatch: group merging is
+        # its ingest-side batching
+        self.scan_steps = 1 if self.n_dp > 1 else max(1, int(scan_steps))
         self.merge_max = max(1, int(merge_max))
         self.state_fn = state_fn or PipelineState
         self.capacity = capacity
@@ -359,6 +451,8 @@ class IngestPipeline:
                 torch.cuda.set_stream(self._stream)
             while not self._stop.is_set():
                 self._serve_publish()
+                if self.uniforms is not None:
+                    self.uniforms.refill()
                 st = self.state_fn()
                 if self.client is not None:
                     # service mode: send the queued write-backs, then
@@ -470,7 +564,8 @@ class IngestPipeline:
             if j == 1:
                 slot = self._single_slot(take[0], planned=0)
                 continue
-            merged = merge_chunk_messages(take)
+            merged = (merge_group_messages(take, self.n_dp)
+                      if self.n_dp > 1 else merge_chunk_messages(take))
             self.stats["merged_slots"] += 1
             self.stats["merged_chunks"] += j
             self.stats["slots"] += 1
@@ -531,22 +626,31 @@ class IngestPipeline:
         """Max chunks mergeable with ``payload`` first: a frame chunk, and
         merged shapes within the pool's bounds (m*K <= capacity keeps the
         transition scatter duplicate-free, m*Kf <= frame_capacity the ring
-        write in bounds)."""
+        write in bounds).  A sharded group's shapes carry the dp axis in
+        front; the bounds are each shard's."""
         if not is_frame_chunk(payload):
             return 1
+        ax = 1 if self.n_dp > 1 else 0
         cap = self.merge_max
         if self.capacity is not None:
-            cap = min(cap, self.capacity // max(1, payload["action"].shape[0]))
+            cap = min(cap, self.capacity
+                      // max(1, payload["action"].shape[ax]))
         if self.frame_capacity is not None:
             cap = min(cap, self.frame_capacity
-                      // max(1, payload["frames"].shape[0]))
+                      // max(1, payload["frames"].shape[ax]))
         return max(1, cap)
 
     # -- staging -----------------------------------------------------------
 
     def _stage(self, slot: StagedSlot) -> StagedSlot:
         """Replace the slot's host arrays (its payload's and priorities')
-        with tensors for the device; the chunk scalars become ints."""
+        with tensors for the device; the chunk scalars become ints.  A
+        sharded group is split by rank first: rank 0's part is staged, the
+        others' are pickled into ``slot.remote``."""
+        if self.n_dp > 1 and slot.kind != "batch":
+            parts = split_group(slot.payload, slot.prios, self.n_dp)
+            slot.payload, slot.prios = parts[0]
+            slot.remote = tuple(wire.dumps(p) for p in parts[1:])
         scan = slot.kind == "scan"
         payloads = [dict(p) for p in (slot.payload if scan
                                       else [slot.payload])]

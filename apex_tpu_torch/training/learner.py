@@ -44,15 +44,16 @@ class LearnerCore:
     target_update_interval: int = 2500
 
     def update_from_batch(self, train_state: TrainState, batch: dict,
-                          weights: torch.Tensor):
-        """The update body, see :func:`td_update`."""
+                          weights: torch.Tensor, group=None):
+        """The update body, see :func:`td_update` (``group``: the dp group
+        whose ranks mean their gradients and metrics)."""
 
         def loss_fn():
             return double_dqn_loss(train_state.params,
                                    train_state.target_params, batch, weights)
 
         return td_update(self.optimizer, self.target_update_interval,
-                         train_state, loss_fn)
+                         train_state, loss_fn, group)
 
     def train_step(self, train_state: TrainState, replay_state: ReplayStates,
                    offsets: torch.Tensor, beta: float):
@@ -96,16 +97,29 @@ class LearnerCore:
 
 
 def td_update(optimizer: ClipRMSprop, target_update_interval: int,
-              train_state: TrainState, loss_fn):
-    """Loss/grads -> clip+optimizer -> target sync when the new step count
-    is a multiple of ``target_update_interval``.  ``loss_fn() -> (loss,
-    TDOutput)``.  Returns ``(train_state, priorities, metrics)``; the
-    metrics are device scalars (no host sync): ``loss``, ``grad_norm`` (of
-    the unclipped grads), ``q_mean`` and ``td_mean``."""
+              train_state: TrainState, loss_fn, group=None):
+    """Loss/grads -> (the mean over the dp ``group``) -> clip+optimizer ->
+    target sync when the new step count is a multiple of
+    ``target_update_interval``.  ``loss_fn() -> (loss, TDOutput)``.
+    Returns ``(train_state, priorities, metrics)``; the metrics are device
+    scalars (no host sync): ``loss``, ``grad_norm`` (of the unclipped
+    grads), ``q_mean`` and ``td_mean``.
+
+    With a ``group`` (:class:`~apex_tpu_torch.parallel.mesh.DpGroup`) the
+    grads, ``loss``, ``q_mean`` and ``td_mean`` are meaned over its ranks
+    in one all-reduce before the optimizer step, so the clip and
+    ``grad_norm`` see the averaged grads and every rank takes the same
+    update (``apex_tpu/training/learner.py:135-152``); the priorities stay
+    this rank's."""
     params = list(train_state.params.parameters())
     loss, aux = loss_fn()
-    grads = torch.autograd.grad(loss, params)
-    grad_norm = optimizer.step(params, list(grads), train_state.opt_state)
+    grads = list(torch.autograd.grad(loss, params))
+    scalars = None
+    if group is not None:
+        scalars = torch.stack([aux.loss, aux.q_taken.detach().mean(),
+                               aux.td_abs.mean()])
+        group.all_reduce_mean_(grads + [scalars])
+    grad_norm = optimizer.step(params, grads, train_state.opt_state)
 
     train_state.step += 1
     if train_state.step % target_update_interval == 0:
@@ -114,12 +128,16 @@ def td_update(optimizer: ClipRMSprop, target_update_interval: int,
                                 params):
                 tgt.copy_(src)
 
-    metrics = {
-        "loss": aux.loss,
-        "grad_norm": grad_norm,
-        "q_mean": aux.q_taken.mean(),
-        "td_mean": aux.td_abs.mean(),
-    }
+    if scalars is None:
+        metrics = {
+            "loss": aux.loss,
+            "grad_norm": grad_norm,
+            "q_mean": aux.q_taken.mean(),
+            "td_mean": aux.td_abs.mean(),
+        }
+    else:
+        metrics = {"loss": scalars[0], "grad_norm": grad_norm,
+                   "q_mean": scalars[1], "td_mean": scalars[2]}
     return train_state, aux.priorities, metrics
 
 

@@ -20,8 +20,10 @@ replay items):
   processes of :mod:`apex_tpu_torch.actors.r2d2` over the shm ring.
 
 As in the other drivers, PRNG keys become ``torch.Generator`` draws on the
-learner's device, and entry points default to ``"cuda"``.  Not ported:
-the sharded learner (``mesh_shape`` > 1, ROADMAP item 4).  The learner
+learner's device, and entry points default to ``"cuda"``.  With
+``learner.mesh_shape`` above 1, :class:`R2D2ApexTrainer` runs the sharded
+plan of :class:`~apex_tpu_torch.training.apex.ConcurrentTrainer` (one
+sequence-replay shard per rank, :mod:`apex_tpu_torch.parallel`).  The learner
 role builds :class:`R2D2ApexTrainer` over sockets
 (:func:`apex_tpu_torch.runtime.roles.run_learner`); remote policy serves
 the DQN family only, as in the reference.
@@ -224,14 +226,14 @@ class R2D2Core(LearnerCore):
     n_steps: int = 3
 
     def update_from_batch(self, train_state, batch: dict,
-                          weights: torch.Tensor):
+                          weights: torch.Tensor, group=None):
         def loss_fn():
             return r2d2_loss(train_state.params, train_state.target_params,
                              batch, weights, burn_in=self.burn_in,
                              n_steps=self.n_steps)
 
         return td_update(self.optimizer, self.target_update_interval,
-                         train_state, loss_fn)
+                         train_state, loss_fn, group)
 
 
 def r2d2_env_specs(cfg: ApexConfig):
@@ -496,7 +498,8 @@ class R2D2ApexTrainer(ConcurrentTrainer):
                  publish_min_seconds: float = 0.2,
                  min_train_ratio: float | None = None,
                  respawn_workers: bool = True,
-                 checkpoint_dir: str | None = None):
+                 checkpoint_dir: str | None = None,
+                 dp_backend: str = "nccl"):
         self.device = resolve_device(device)
         self.cfg = cfg = _single_frames(config)
         rc, lc = cfg.r2d2, cfg.learner
@@ -521,5 +524,6 @@ class R2D2ApexTrainer(ConcurrentTrainer):
         self.pool = pool
         self._init_loop(train_ratio, min_train_ratio, publish_min_seconds,
                         respawn_workers, logdir, verbose, checkpoint_dir)
+        self._init_sharded(dp_backend)
 
     evaluate = _r2d2_evaluate

@@ -215,6 +215,30 @@ Phases, each of which exits nonzero on failure before any result line:
    frames and the seconds from the kill to each edge.  16c (``lint``):
    ``python -m apex_tpu_torch.analysis --strict`` under ``-X importtime``
    exits 0 having imported none of torch, numpy, JAX, flax or msgpack.
+17. dp -- the sharded learner (``apex_tpu_torch.parallel``) on the one
+   card, at phase 4's width per rank (84x84x1 u8, stack 4, batch 512 =
+   256 per rank, capacity 2^19 and ring 2^20 per rank).  17-build: two
+   fresh rank processes use the gather kernels at once, building one
+   empty library directory: each gathers exactly, one whole library is
+   left, and it prints how many compiled.  17a (``dp_reference``): a
+   2-rank ``ShardedLearner`` over gloo on ``cuda:0`` (this process and
+   one spawned rank; rank 1's weights arrive by broadcast) for 8 fused
+   steps of phase 4's chunks, one per rank per group, under
+   deterministic cuDNN, against an in-process reference that computes
+   each shard's loss and grads apart and steps once on their mean: the
+   ranks' weights and metrics bit-identical after every step, each
+   rank's IS weights those of the normalizer over both shards, the
+   weights within 1e-6 of the reference (and whether bit-equal), one
+   ``gather_stacks`` per rank per step; then the step's all-reduce timed
+   alone.  17b (``dp_train``): ``ApexTrainer.train`` with
+   ``mesh_shape=(2,)`` and ``dp_backend="gloo"`` on ``"cuda"``, phase
+   5's actors and chunking on rank 0's pool, warm-up 4096, 60 learner
+   steps: every rank's steps and gather launches, shard sizes adding up
+   to the ingest, publishes, finite metrics, no rank, actor or segment
+   left; prints steps/s beside phase 5's, the update all-reduce's ms per
+   step and each rank's peak memory.  17c (``dp_nccl1``):
+   ``ShardedLearner`` at world size 1 over NCCL, 4 fused steps bit-equal
+   to the unsharded fused step.
 
 Then it prints the card's name and power limit, one ``{"kernels": ...}``
 line (``launches`` counts each kernel's main path: phase 5's pipelined
@@ -230,9 +254,11 @@ and ``remote_codec`` and phase 13's ``replay_service`` (the learner's),
 ``fleet_trace``, ``fleet_trace_nospans``, ``fleet_shards``,
 ``fleet_shards_shards`` and ``fleet_profile``, and phase 15's
 ``ctl_serve``, ``ctl_tenant`` (the learner's), ``ctl_tenant_shards``
-(the shard processes' own) and ``ctl_pbt``, and phase 16's ``launch``
-(the learner process's own count), ``launch_shards`` and ``soak``) and,
-last, ``{"ok": true, "device": {...}}``.  It needs one card and exits
+(the shard processes' own) and ``ctl_pbt``, phase 16's ``launch``
+(the learner process's own count), ``launch_shards`` and ``soak``, and
+phase 17's ``dp_reference`` and ``dp_train``, summed over the ranks and
+per rank as ``dp_reference_rank0`` ... ``dp_train_rank1``, and
+``dp_nccl1``) and, last, ``{"ok": true, "device": {...}}``.  It needs one card and exits
 nonzero without one.  ``--profile DIR`` also traces a few more
 fused steps of phases 4, 9 and 11 (continuous and pixels) with
 ``torch.profiler``, writes device time by op and by kernel to DIR and
@@ -5452,6 +5478,560 @@ def tools_phase(dev) -> dict:
             "soak": soak["launches"]}
 
 
+# -- phase 17: the sharded learner -----------------------------------------
+
+DP_WORLD = 2                 # ranks of phase 17 (one card: gloo)
+DP_REF_STEPS = 8             # 17a's fused steps, after one ingest group
+DP_ALLREDUCE_REPS = 20       # 17a's timed all-reduces of the step's bucket
+DP_TRAIN_STEPS = 60          # 17b's learner steps
+DP_SECONDS = 150.0           # 17b's wall-clock bound
+DP_NCCL_STEPS = 4            # 17c's fused steps
+DP_WEIGHT_ATOL = 1e-6        # 17a: weights against the reference, at most
+
+_IS_SEEN: list = []          # a recording pool's IS weights, in order
+
+
+def _digest(tensors) -> str:
+    """sha256 of ``tensors``' bytes, in order (one device-to-host copy)."""
+    import hashlib
+
+    flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
+    return hashlib.sha256(flat.cpu().numpy().tobytes()).hexdigest()
+
+
+def _dp_learner(dev, seed: int, record: bool = False,
+                with_replay: bool = True):
+    """Phase 4's learner at full width on ``dev``: ``(core, train_state,
+    replay_state)``, the weights drawn from ``seed``.  ``record``: the
+    pool keeps each sample's IS weights in ``_IS_SEEN``;
+    ``with_replay=False`` allocates no replay state (None)."""
+    from apex_tpu_torch.models.dueling import DuelingDQN
+    from apex_tpu_torch.ops.losses import make_optimizer
+    from apex_tpu_torch.replay.frame_pool import FramePoolReplay
+    from apex_tpu_torch.training.apex import dqn_env_specs
+    from apex_tpu_torch.training.learner import LearnerCore
+    from apex_tpu_torch.training.state import create_train_state
+
+    class RecordingPool(FramePoolReplay):
+        def sample(self, state, offsets, beta, group=None):
+            out = super().sample(state, offsets, beta, group)
+            _IS_SEEN.append(out[1])
+            return out
+
+    cfg = _full_width_cfg(True)
+    spec = dqn_env_specs(cfg)[0]
+    replay = (RecordingPool if record else FramePoolReplay)(
+        capacity=CAPACITY, frame_shape=FRAME, frame_stack=STACK,
+        frame_capacity=RING_ROWS)
+    core = LearnerCore(replay=replay, optimizer=make_optimizer(),
+                       batch_size=BATCH,
+                       target_update_interval=TARGET_INTERVAL)
+    model = DuelingDQN(**spec, generator=torch.Generator().manual_seed(seed))
+    ts = create_train_state(model.to(dev), core.optimizer)
+    return core, ts, replay.init(dev) if with_replay else None
+
+
+def _dp_apply(sl, state: dict, msg: dict) -> dict | None:
+    """One 17a op on this rank's ``state`` (``ts``, ``rs``): rank 0
+    applies the message it sent, rank 1 the one it received.  A fused
+    step returns its record: the weights' and the IS weights' digests
+    and the metrics."""
+    from apex_tpu_torch.runtime import wire
+
+    op = msg["op"]
+    if op == "sync":
+        sl.sync_train_state_(state["ts"], msg["numbers"])
+        return None
+    if op == "allreduce":
+        bucket = [p.detach().clone() for p in state["ts"].params.parameters()]
+        sync = (torch.cuda.synchronize if sl.group.device.type == "cuda"
+                else (lambda: None))
+        sl.group.all_reduce_mean_(bucket)            # warm
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(msg["reps"]):
+            sl.group.all_reduce_mean_(bucket)
+        sync()
+        return {"ms": (time.perf_counter() - t0) * 1e3 / msg["reps"],
+                "floats": sum(t.numel() for t in bucket)}
+    payload, prios = wire.restricted_loads(msg["chunk"])
+    if op == "ingest":
+        state["rs"] = sl.make_ingest()(state["rs"], payload, prios)
+        return None
+    state["ts"], state["rs"], metrics = state["fused"](
+        state["ts"], state["rs"], payload, prios, msg["offsets"],
+        msg["beta"])
+    return {"params": _digest(state["ts"].params.parameters()),
+            "is": _digest([_IS_SEEN[-1]]),
+            "metrics": {k: float(v) for k, v in metrics.items()}}
+
+
+def _dp_ref_rank(store, rank: int, world: int, device: str,
+                 geometry: dict) -> None:
+    """17a's rank >= 1, a spawned process: rank 0's learner geometry
+    (``geometry``: the module constants it set) on ``device`` (rank 0's
+    card), weights from its own seed until rank 0's arrive, joined to the
+    gloo groups, applying rank 0's ops until ``stop``; its step records
+    and gather launches go to the store."""
+    from apex_tpu_torch.ops import gather
+    from apex_tpu_torch.parallel.learner import ShardedLearner
+    from apex_tpu_torch.parallel.mesh import init_dp
+
+    globals().update(geometry)
+    torch.backends.cudnn.deterministic = True
+    dev = torch.device(device)
+    core, ts, rs = _dp_learner(dev, SEED + rank, record=True)
+    store.set(f"ready/{rank}", "1")
+    group = init_dp(world, rank, backend="gloo", store=store, device=dev)
+    sl = ShardedLearner(core, group)
+    state = {"ts": ts, "rs": rs, "fused": sl.make_fused_step()}
+    records = []
+    for name in gather.LAUNCH_COUNTS:
+        gather.LAUNCH_COUNTS[name] = 0
+    while True:
+        msg = group.recv_op()
+        if msg["op"] == "stop":
+            break
+        out = _dp_apply(sl, state, msg)
+        if msg["op"] == "fused":
+            records.append(out)
+    store.set(f"stats/{rank}", json.dumps({
+        "records": records, "launches": dict(gather.LAUNCH_COUNTS),
+        "peak": (torch.cuda.max_memory_allocated(dev)
+                 if dev.type == "cuda" else 0)}))
+    group.close()
+
+
+def _first_use_build(build_dir: str) -> dict:
+    """One rank's first use of the gather kernels in a fresh process, with
+    the library built into ``build_dir`` (which another rank builds into
+    at the same time): whether this process ran ``nvcc``, how long the
+    build took, and ``gather_rows`` on the card against its plain
+    version."""
+    from apex_tpu_torch.ops import gather
+
+    gather.BUILD_DIR = build_dir
+    gather.LIBRARY = os.path.join(build_dir, os.path.basename(gather.LIBRARY))
+    compiled = not os.path.exists(gather.LIBRARY)
+    t0 = time.perf_counter()
+    gather.build()
+    seconds = time.perf_counter() - t0
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    frames = torch.randint(0, 256, (4096, FRAME[0] * FRAME[1]),
+                           dtype=torch.uint8, device="cuda", generator=gen)
+    ids = torch.randint(0, 4096, (1024,), dtype=torch.int32, device="cuda",
+                        generator=gen)
+    exact = torch.equal(gather.gather_rows(frames, ids),
+                        gather.gather_rows_reference(frames, ids))
+    return {"compiled": compiled, "seconds": seconds, "exact": exact,
+            "pid": os.getpid()}
+
+
+def dp_build_check() -> dict:
+    """17a's first step: two rank processes use the gather kernels for the
+    first time at once, both building one fresh library directory (the
+    one-card gloo plan's race): each must load a whole library and gather
+    exactly.  ``ops/gather.py:build`` compiles into a temp file and
+    renames it into place with ``os.replace``, so at worst each rank
+    compiles once."""
+    import multiprocessing as mp
+    import shutil
+    import tempfile
+
+    build_dir = tempfile.mkdtemp(prefix="apex-dp-build-")
+    try:
+        with mp.get_context("spawn").Pool(DP_WORLD) as pool:
+            out = pool.map(_first_use_build, [build_dir] * DP_WORLD)
+        left = sorted(os.listdir(build_dir))
+    finally:
+        shutil.rmtree(build_dir, ignore_errors=True)
+    check(all(o["exact"] for o in out),
+          f"dp_build: a rank's first-use gather was not exact: {out}")
+    check(left == ["libapex_gather.so"],
+          f"dp_build: the build directory holds {left}")
+    compiles = sum(o["compiled"] for o in out)
+    log(f"dp_build: {DP_WORLD} rank processes' first use at once into one "
+        f"fresh build directory: {compiles} nvcc compile(s) (at most one "
+        f"per rank), build seconds "
+        f"{[round(o['seconds'], 3) for o in out]}, each gather_rows exact, "
+        f"one whole library left")
+    return {"compiles": compiles}
+
+
+def _dp_reference(dev, params0: dict, groups: list, offsets: list,
+                  beta: float) -> list[dict]:
+    """17a's in-process reference: two plain replay shards and one
+    learner; each step ingests each shard's chunk, samples each shard
+    with its uniforms, weighs each sample with the IS normalizer taken
+    over both shards, computes each shard's loss and grads on its own and
+    steps once on their mean, then writes each shard's priorities back.
+    Returns one record per step (digests of the weights and of each
+    shard's IS weights, the metrics, each shard's normalizer)."""
+    from apex_tpu_torch.ops import tree as tree_ops
+    from apex_tpu_torch.ops.losses import double_dqn_loss
+
+    core, ts, _ = _dp_learner(dev, SEED, with_replay=False)
+    ts.params.load_state_dict(params0)
+    ts.target_params.load_state_dict(params0)
+    replay = core.replay
+    shards = [replay.init(dev) for _ in range(DP_WORLD)]
+    params = list(ts.params.parameters())
+    records = []
+    for parts, step_offsets in zip(groups, [None] + offsets):
+        for r in range(DP_WORLD):
+            replay.add(shards[r], *parts[r])
+        if step_offsets is None:
+            continue
+        samples, norms = [], []
+        for r, rs in enumerate(shards):
+            batch, _, idx = replay.sample(
+                rs, torch.as_tensor(step_offsets[r]).to(dev), beta)
+            total = tree_ops.tree_total(rs.sum_tree)
+            p_min = tree_ops.tree_min(rs.min_tree) / total
+            norms.append((p_min * float(rs.size)) ** (-beta))
+            samples.append((batch, idx, total, float(rs.size)))
+        norm = torch.maximum(norms[0], norms[1])
+        grads, auxes, is_digests = [], [], []
+        for r, (batch, idx, total, size) in enumerate(samples):
+            p = tree_ops.get_leaves(shards[r].sum_tree, idx) / total
+            w = ((p * size) ** (-beta) / norm).float()
+            is_digests.append(_digest([w]))
+            loss, aux = double_dqn_loss(ts.params, ts.target_params, batch, w)
+            grads.append(torch.autograd.grad(loss, params))
+            auxes.append(aux)
+        mean = [(a + b) / DP_WORLD for a, b in zip(*grads)]
+        grad_norm = core.optimizer.step(params, mean, ts.opt_state)
+        ts.step += 1
+        if ts.step % TARGET_INTERVAL == 0:
+            with torch.no_grad():
+                for tgt, src in zip(ts.target_params.parameters(), params):
+                    tgt.copy_(src)
+        for r, aux in enumerate(auxes):
+            replay.update_priorities(shards[r], samples[r][1],
+                                     aux.priorities)
+        pair = [torch.stack([a.loss, a.q_taken.detach().mean(),
+                             a.td_abs.mean()]) for a in auxes]
+        means = ((pair[0] + pair[1]) / DP_WORLD).tolist()  # apexlint: disable=T006 -- one record per reference step
+        records.append({
+            "params": _digest(params), "is": is_digests,
+            "metrics": {"loss": means[0], "grad_norm": float(grad_norm),
+                        "q_mean": means[1], "td_mean": means[2]},
+            "norms": [float(n) for n in norms],
+            "weights": [p.detach().clone() for p in params]})
+    return records
+
+
+def dp_reference_run(dev, gather, msgs: list) -> dict:
+    """17a (``dp_reference``): a 2-rank ``ShardedLearner`` over gloo on
+    ``cuda:0``, this process and one spawned rank, for ``DP_REF_STEPS``
+    fused steps of phase 4's chunks (round-robin groups, one ingest group
+    first), against :func:`_dp_reference` on the same weights, chunks and
+    per-rank uniforms; then the step's all-reduce timed alone."""
+    from apex_tpu_torch.parallel.learner import ShardedLearner
+    from apex_tpu_torch.parallel.mesh import RankProcesses, init_dp
+    from apex_tpu_torch.runtime import wire
+
+    n_groups = 1 + DP_REF_STEPS
+    check(len(msgs) >= DP_WORLD * n_groups,
+          f"dp_reference: {len(msgs)} chunks for {n_groups} groups")
+    groups = []
+    for i in range(n_groups):
+        parts = [(m["payload"], np.asarray(m["priorities"], np.float32))
+                 for m in msgs[i * DP_WORLD:(i + 1) * DP_WORLD]]
+        groups.append((parts, [wire.dumps(p) for p in parts]))
+    gens = [torch.Generator().manual_seed(SEED + 17 + r)
+            for r in range(DP_WORLD)]
+    offsets = [[torch.rand(BATCH // DP_WORLD, generator=g).numpy()
+                for g in gens] for _ in range(DP_REF_STEPS)]
+    beta = 0.4
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    ranks = None
+    t0 = time.perf_counter()
+    try:
+        ranks = RankProcesses(DP_WORLD, _dp_ref_rank, (str(dev), {
+            "CAPACITY": CAPACITY, "RING_ROWS": RING_ROWS, "BATCH": BATCH}))
+        _IS_SEEN.clear()
+        core, ts, rs = _dp_learner(dev, SEED, record=True)
+        params0 = {k: v.detach().clone()
+                   for k, v in ts.params.state_dict().items()}
+        ranks.wait_ready(300.0)
+        group = init_dp(DP_WORLD, 0, backend="gloo", store=ranks.store,
+                        device=dev)
+        t_ready = time.perf_counter() - t0
+        sl = ShardedLearner(core, group)
+        state = {"ts": ts, "rs": rs, "fused": sl.make_fused_step()}
+
+        def send(msg_of):
+            msgs_out = [None] + [msg_of(r) for r in range(1, DP_WORLD)]
+            group.send_ops(msgs_out)
+            return _dp_apply(sl, state, msg_of(0))
+
+        numbers = sl.train_state_numbers(ts)
+        send(lambda r: {"op": "sync", "numbers": numbers})
+        for name in gather.LAUNCH_COUNTS:             # main path starts
+            gather.LAUNCH_COUNTS[name] = 0
+        records = []
+        t1 = time.perf_counter()
+        for i, (_, blobs) in enumerate(groups):
+            if i == 0:
+                send(lambda r: {"op": "ingest", "chunk": blobs[r]})
+                continue
+            records.append(send(lambda r: {
+                "op": "fused", "chunk": blobs[r], "offsets": offsets[i - 1][r],
+                "beta": beta}))
+        torch.cuda.synchronize()
+        steps_s = time.perf_counter() - t1
+        launches0 = dict(gather.LAUNCH_COUNTS)        # main path ends
+        timed = send(lambda r: {"op": "allreduce",
+                                "reps": DP_ALLREDUCE_REPS})
+        group.send_ops([None] + [{"op": "stop"}] * (DP_WORLD - 1))
+        ranks.stop(60.0)
+        group.close()
+        peer = ranks.rank_stats()
+        check(sorted(peer) == [1], f"dp_reference: rank records {peer}")
+        peer = peer[1]
+        del group, sl
+        ref = _dp_reference(dev, params0, [g[0] for g in groups], offsets,
+                            beta)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        if ranks is not None:
+            ranks.stop(5.0)
+    check(not ranks.alive(), "dp_reference: a rank process outlived 17a")
+    launches1 = peer["launches"]
+    for r, got in enumerate((launches0, launches1)):
+        check(got == {"gather_rows": 0, "gather_stacks": DP_REF_STEPS},
+              f"dp_reference: rank {r} gather launches {got} in "
+              f"{DP_REF_STEPS} steps")
+    recs1 = peer["records"]
+    check(len(records) == len(recs1) == len(ref) == DP_REF_STEPS,
+          f"dp_reference: {len(records)}/{len(recs1)}/{len(ref)} records")
+    bit_equal, skewed = True, 0
+    for i, (a, b, want) in enumerate(zip(records, recs1, ref)):
+        check(a["params"] == b["params"],
+              f"dp_reference: ranks' weights differ after step {i + 1}")
+        check(a["metrics"] == b["metrics"],
+              f"dp_reference: ranks' metrics differ at step {i + 1}")
+        for r, got in enumerate((a["is"], b["is"])):
+            check(got == want["is"][r],
+                  f"dp_reference: rank {r}'s IS weights at step {i + 1} are "
+                  f"not those of the normalizer over both shards")
+        skewed += want["norms"][0] != want["norms"][1]
+        for name, v in a["metrics"].items():
+            check(math.isfinite(v) and abs(v - want["metrics"][name])
+                  <= 1e-5 * max(1.0, abs(want["metrics"][name])),
+                  f"dp_reference: {name} {v} vs reference "
+                  f"{want['metrics'][name]} at step {i + 1}")
+        bit_equal &= a["params"] == want["params"]
+    check(skewed > 0, "dp_reference: the shards' IS normalizers never "
+                      "differed, so the global max went untested")
+    gap = max(float((p.detach() - w).abs().max())
+              for p, w in zip(state["ts"].params.parameters(),
+                              ref[-1]["weights"]))
+    check(gap <= DP_WEIGHT_ATOL,
+          f"dp_reference: weights {gap} from the reference after "
+          f"{DP_REF_STEPS} steps (at most {DP_WEIGHT_ATOL})")
+    log(f"dp_reference: {DP_WORLD} ranks (gloo, cuda:0, this process and "
+        f"one spawned) ready in {t_ready:.3f} s; {DP_REF_STEPS} fused "
+        f"steps at batch {BATCH} ({BATCH // DP_WORLD} per rank), capacity "
+        f"{CAPACITY} and ring {RING_ROWS} per rank in {steps_s:.3f} s "
+        f"({steps_s * 1e3 / DP_REF_STEPS:.3f} ms/step with the op "
+        f"scatter and the chunks' host-to-device copies); ranks' weights "
+        f"and metrics bit-identical after every step; IS weights those of "
+        f"the normalizer over both shards on every rank and step (the "
+        f"shards' normalizers differed on {skewed} of {DP_REF_STEPS} "
+        f"steps); weights against the reference: max |diff| {gap:.3e}, "
+        f"bit-equal {bit_equal}; gather launches rank 0 {launches0}, rank "
+        f"1 {launches1}")
+    log(f"dp_reference: the step's all-reduce alone ({timed['floats']} "
+        f"f32, gloo through host memory, synchronised): "
+        f"{timed['ms']:.3f} ms (mean of {DP_ALLREDUCE_REPS}); rank 1 peak "
+        f"memory {peer['peak'] / 2**30:.3f} GiB")
+    total = {k: launches0[k] + launches1[k] for k in launches0}
+    return {"launches": total, "rank_launches": [launches0, launches1],
+            "allreduce_ms": timed["ms"], "bit_equal": bit_equal,
+            "max_gap": gap}
+
+
+def dp_train_run(dev, gather, p5: dict, p17a: dict) -> dict:
+    """17b (``dp_train``): ``ApexTrainer.train`` with ``mesh_shape=(2,)``
+    and ``dp_backend="gloo"`` on the default ``"cuda"``: phase 5's actors
+    and chunking on rank 0's pool, its warm-up, ``DP_TRAIN_STEPS`` learner
+    steps."""
+    import dataclasses
+    import multiprocessing as mp
+
+    from apex_tpu_torch.config import (ActorConfig, ApexConfig, EnvConfig,
+                                       LearnerConfig, ReplayConfig)
+    from apex_tpu_torch.native.ring import SEGMENT_PREFIX
+    from apex_tpu_torch.training.apex import ApexTrainer
+
+    cfg = ApexConfig(
+        env=EnvConfig(env_id="ApexCatch-v0", seed=SEED),
+        replay=ReplayConfig(capacity=CAPACITY, warmup=TRAIN_WARMUP),
+        learner=LearnerConfig(batch_size=BATCH, target_update_interval=500,
+                              mesh_shape=(DP_WORLD,)),
+        actor=ActorConfig(n_actors=N_ACTORS, n_envs_per_actor=ENVS_PER_ACTOR,
+                          send_interval=SEND_INTERVAL, timing_interval=32))
+    torch.cuda.reset_peak_memory_stats(dev)
+    trainer = ApexTrainer(cfg, publish_min_seconds=0.5, dp_backend="gloo")
+    check(trainer.n_dp == DP_WORLD and trainer.dp_backend == "gloo",
+          f"dp_train: n_dp {trainer.n_dp}, backend {trainer.dp_backend}")
+    for name in gather.LAUNCH_COUNTS:                 # main path starts
+        gather.LAUNCH_COUNTS[name] = 0
+    t0 = time.perf_counter()
+    trainer.train(total_steps=DP_TRAIN_STEPS, max_seconds=DP_SECONDS,
+                  log_every=20)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches0 = dict(gather.LAUNCH_COUNTS)            # main path ends
+    ranks = trainer.dp_rank_stats
+    check(trainer.steps == DP_TRAIN_STEPS,
+          f"dp_train: {trainer.steps} learner steps in {wall:.1f} s, want "
+          f"{DP_TRAIN_STEPS} within {DP_SECONDS} s")
+    check(sorted(ranks) == list(range(DP_WORLD)),
+          f"dp_train: rank records {sorted(ranks)}")
+    launches1 = ranks[1]["gather_launches"]
+    for r, got in enumerate((launches0, launches1)):
+        check(got == {"gather_rows": 0, "gather_stacks": trainer.steps},
+              f"dp_train: rank {r} gather launches {got} in "
+              f"{trainer.steps} steps")
+        check(ranks[r]["steps"] == trainer.steps,
+              f"dp_train: rank {r} took {ranks[r]['steps']} steps")
+    check(ranks[0]["replay_size"] + ranks[1]["replay_size"]
+          == trainer.ingested,
+          f"dp_train: shard sizes {ranks[0]['replay_size']} + "
+          f"{ranks[1]['replay_size']} != {trainer.ingested} ingested")
+    check(trainer.param_version >= 2,
+          f"dp_train: {trainer.param_version} param publishes")
+    versions = [v for _, v in
+                trainer.log.history.get("learner/episode_param_version", [])]
+    check(bool(versions) and min(versions) > 0,
+          f"dp_train: episode stats' param versions {versions[:8]}")
+    n_logged = _finite_logged(trainer)
+    check(n_logged > 0, "dp_train: no learner metrics logged")
+    alive = [p.pid for p in trainer.pool.procs if p.is_alive()]
+    check(not alive, f"dp_train: actor processes {alive} outlived train()")
+    check(trainer._ranks is None and not mp.active_children(),
+          f"dp_train: processes outlived train(): {mp.active_children()}")
+    left = [f for f in os.listdir("/dev/shm")
+            if f.startswith(f"{SEGMENT_PREFIX}-{os.getpid()}-")]
+    check(not left, f"dp_train: segments left in /dev/shm: {left}")
+    coll = ranks[0]["collectives"]
+    ar_ms = coll["allreduce_s"] * 1e3 / max(1, coll["allreduce_calls"])
+    log(f"dp_train: {DP_WORLD} ranks (gloo on one card), {N_ACTORS} actor "
+        f"processes x {ENVS_PER_ACTOR} envs on rank 0's pool, chunks of "
+        f"{SEND_INTERVAL}, warm-up {TRAIN_WARMUP}; {trainer.steps} learner "
+        f"steps in {wall:.3f} s of train(); dispatches "
+        f"{trainer.dispatches}; {trainer.ingested} transitions ingested "
+        f"(shards {ranks[0]['replay_size']} + {ranks[1]['replay_size']}); "
+        f"param_version {trainer.param_version}; pipeline stats "
+        f"{trainer._pipeline_last_stats}")
+    log(f"dp_train: learner steps/s {trainer.steps_rate.rate:.3f} (phase 5, "
+        f"one rank: {p5['steps_per_s']:.3f}); env frames/s over train() "
+        f"{trainer.ingested / wall:.1f}; the update all-reduce's host ms "
+        f"per step {ar_ms:.3f} (wait included; alone, synchronised, "
+        f"{p17a['allreduce_ms']:.3f}); ops sent {coll['ops_sent']} "
+        f"({coll['op_bytes'] / 2**20:.1f} MiB); peak memory rank 0 "
+        f"{ranks[0]['peak_bytes'] / 2**30:.3f} GiB, rank 1 "
+        f"{ranks[1]['peak_bytes'] / 2**30:.3f} GiB; {n_logged} logged "
+        f"metrics finite; no rank, actor or segment left")
+    return {"launches": {k: launches0[k] + launches1[k] for k in launches0},
+            "rank_launches": [launches0, launches1],
+            "steps_per_s": trainer.steps_rate.rate, "allreduce_ms": ar_ms}
+
+
+def dp_nccl1_run(dev, gather, msgs: list) -> dict:
+    """17c (``dp_nccl1``): ``ShardedLearner`` at world size 1 over NCCL on
+    ``cuda:0`` for ``DP_NCCL_STEPS`` fused steps, against the unsharded
+    ``LearnerCore`` fused step on the same weights, chunks and uniforms:
+    bit-equal under deterministic cuDNN."""
+    from apex_tpu_torch.parallel.learner import ShardedLearner
+    from apex_tpu_torch.parallel.mesh import init_dp
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        t0 = time.perf_counter()
+        group = init_dp(1, 0, backend="nccl", device=dev)
+        core, ts, rs = _dp_learner(dev, SEED)
+        sl = ShardedLearner(core, group)
+        fused = sl.make_fused_step()
+        gen = torch.Generator().manual_seed(SEED + 170)
+        offsets = [torch.rand(BATCH, generator=gen)
+                   for _ in range(DP_NCCL_STEPS)]
+        chunks = [(m["payload"], m["priorities"])
+                  for m in msgs[:1 + DP_NCCL_STEPS]]
+        for name in gather.LAUNCH_COUNTS:             # main path starts
+            gather.LAUNCH_COUNTS[name] = 0
+        rs = sl.make_ingest()(rs, *chunks[0])
+        got = []
+        for (payload, prios), off in zip(chunks[1:], offsets):
+            ts, rs, m = fused(ts, rs, payload, prios, off, 0.4)
+            got.append({k: v.detach().clone() for k, v in m.items()})
+        torch.cuda.synchronize()
+        launches = dict(gather.LAUNCH_COUNTS)         # main path ends
+        wall = time.perf_counter() - t0
+        group.close()
+        ref_core, ref_ts, ref_rs = _dp_learner(dev, SEED)
+        ref_rs = ref_core.ingest(ref_rs, *chunks[0])
+        want = []
+        for (payload, prios), off in zip(chunks[1:], offsets):
+            ref_ts, ref_rs, m = ref_core.fused_step(
+                ref_ts, ref_rs, payload, prios, off.to(dev), 0.4)
+            want.append(m)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    check(launches == {"gather_rows": 0, "gather_stacks": DP_NCCL_STEPS},
+          f"dp_nccl1: gather launches {launches} in {DP_NCCL_STEPS} steps")
+    for i, (a, b) in enumerate(zip(got, want)):
+        for name in a:
+            check(torch.equal(a[name], b[name]),
+                  f"dp_nccl1: {name} differs at step {i + 1}")
+    _learners_equal(_Bundle(ts, rs), _Bundle(ref_ts, ref_rs), "dp_nccl1")
+    log(f"dp_nccl1: ShardedLearner at world 1 over NCCL on {dev}: "
+        f"{DP_NCCL_STEPS} fused steps (group, learner and steps in "
+        f"{wall:.3f} s) bit-equal to the unsharded fused step (metrics, "
+        f"weights, optimizer, replay); gather launches {launches}")
+    return {"launches": launches}
+
+
+class _Bundle:
+    """What :func:`_learners_equal` reads of a trainer."""
+
+    def __init__(self, ts, rs):
+        self.train_state, self.replay_state = ts, rs
+        self.generator = torch.Generator()
+
+
+def dp_phase(dev, gather, msgs: list, p5: dict) -> dict:
+    """Phase 17: 17a, 17b, 17c.  Returns the paths' launches, summed over
+    the ranks and per rank."""
+    t = [time.perf_counter()]
+    dp_build_check()
+    t.append(time.perf_counter())
+    ref = dp_reference_run(dev, gather, msgs)
+    torch.cuda.empty_cache()
+    t.append(time.perf_counter())
+    run = dp_train_run(dev, gather, p5, ref)
+    torch.cuda.empty_cache()
+    t.append(time.perf_counter())
+    nccl = dp_nccl1_run(dev, gather, msgs)
+    torch.cuda.empty_cache()
+    t.append(time.perf_counter())
+    names = ("dp_build", "dp_reference", "dp_train", "dp_nccl1")
+    log("dp: phase 17 seconds: " + ", ".join(
+        f"{n} {b - a:.1f}" for n, a, b in zip(names, t, t[1:]))
+        + f"; in all {t[-1] - t[0]:.1f}")
+    out = {"dp_reference": ref["launches"], "dp_train": run["launches"],
+           "dp_nccl1": nccl["launches"]}
+    for name, res in (("dp_reference", ref), ("dp_train", run)):
+        for r, counts in enumerate(res["rank_launches"]):
+            out[f"{name}_rank{r}"] = counts
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR",
@@ -5475,11 +6055,19 @@ def main() -> int:
     gather.build(verbose=True)
     log(f"build: gather.cu in {time.perf_counter() - t0:.3f} s")
 
+    marks = [("build", time.perf_counter())]
+
+    def mark(name: str) -> None:
+        marks.append((name, time.perf_counter()))
+
     rows = kernel_phase(dev, gather, card, args.parent)
+    mark("kernels")
     reference_phase(dev)
+    mark("reference")
     result = slice_phase(dev, gather, args.profile)
     msgs = result.pop("msgs")
     torch.cuda.empty_cache()
+    mark("slice")
     loop = train_phase(dev, gather, pipelined=True)
     serial = train_phase(dev, gather, pipelined=False)
     log("train: pipelined vs serial drain, learner steps/s "
@@ -5491,19 +6079,36 @@ def main() -> int:
         f"{loop['dispatches']} vs {serial['dispatches']}; wall "
         f"{loop['wall']:.3f} s vs {serial['wall']:.3f} s")
     actor_phase(loop["threads"])
+    mark("train")
     full = pipeline_phase(dev, gather, msgs)
+    mark("pipeline")
     saved = checkpoint_phase(dev, gather, msgs)
+    mark("checkpoint")
     dqn = dqn_phase(gather)
+    mark("dqn")
     r2d2_reference_phase(dev)
     r2d2 = r2d2_train_phase(dev, gather, args.profile)
     r2d2_single = r2d2_single_phase(dev, gather)
+    mark("r2d2")
     ondevice = ondevice_phase(dev, gather, loop, serial)
+    mark("ondevice")
     aql = aql_phase(dev, gather, args.profile)
+    mark("aql")
     remote, p12a = role_phase(dev, gather, loop)
+    mark("roles")
     services = service_phase(dev, gather, p12a)
+    mark("services")
     fleet = fleet_phase(dev, gather, msgs, p12a)
+    mark("fleet")
     control = control_phase(dev, gather, msgs)
+    mark("control")
     tools = tools_phase(dev)
+    mark("tools")
+    dp = dp_phase(dev, gather, msgs, loop)
+    mark("dp")
+    log("chip_smoke: phase seconds " + ", ".join(
+        f"{name} {t1 - t0:.1f}"
+        for (_, t0), (name, t1) in zip(marks, marks[1:])))
     paths = {"train": loop["launches"], "train_serial": serial["launches"],
              "consume": result["launches"],
              "full_width_pipelined": full["pipelined"]["launches"],
@@ -5511,7 +6116,7 @@ def main() -> int:
              "checkpoint": saved["launches"], "dqn": dqn["launches"],
              "r2d2_train": r2d2["launches"],
              "r2d2_single": r2d2_single["launches"], **ondevice, **aql,
-             **remote, **services, **fleet, **control, **tools}
+             **remote, **services, **fleet, **control, **tools, **dp}
     # each kernel's main path is the trainers' train() that runs it:
     # ApexTrainer's for gather_stacks, R2D2ApexTrainer's for gather_rows;
     # the other paths stand beside
@@ -5526,7 +6131,7 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60)
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
-    log(f"chip_smoke: phases 1-16 in {time.perf_counter() - t_script:.1f} s")
+    log(f"chip_smoke: phases 1-17 in {time.perf_counter() - t_script:.1f} s")
     log(smi.stdout.strip().splitlines()[0])
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -3,10 +3,15 @@
 
 * Every flag of the port's parser that the JAX parser has keeps its name,
   default and env twin (set through ``monkeypatch``); the port's own
-  flags are exactly ``--device`` and ``--send-interval``.
+  flags are exactly ``--device``, ``--send-interval`` and
+  ``--dp-backend``.
 * ``config_from_args`` of both agree on every field the port's config
   shares with JAX's.
-* ``--mesh-dp`` above 1 exits with status 2 naming its ROADMAP item.
+* ``--mesh-dp`` above 1 with a path the sharded learner does not take
+  yet (``--rollout fused|ondevice``, ``--replay-shards``,
+  ``--checkpoint-dir``) exits with status 2 naming its ROADMAP slice;
+  ``--role apex --mesh-dp 2 --dp-backend gloo --device cpu`` trains two
+  ranks and leaves no process.
   The three controllers (``--role serve-ctl|tenant-ctl|pbt-ctl``) read
   their flags and env twins and take their control rounds against a fake
   learner's status server on localhost, exiting 0.  ``--role status`` exits 1 with the JAX message when no
@@ -37,7 +42,7 @@ from apex_tpu.runtime import cli as jax_cli
 from apex_tpu_torch.config import CommsConfig
 from apex_tpu_torch.runtime import cli
 
-PORT_ONLY = {"device", "send_interval"}
+PORT_ONLY = {"device", "send_interval", "dp_backend"}
 
 #: every env twin of the port's parser, with a non-default value
 ENV_TWINS = {
@@ -79,6 +84,7 @@ def _defaults(parser) -> dict:
 
 def _clear_env(monkeypatch) -> None:
     for name in ENV_TWINS | {"APEX_DEVICE": "", "APEX_SEND_INTERVAL": "",
+                             "APEX_DP_BACKEND": "",
                              "APEX_TENANTS": "", "APEX_POPULATION": ""}:
         monkeypatch.delenv(name, raising=False)
 
@@ -112,9 +118,12 @@ def test_every_shared_flag_keeps_the_jax_default_and_env_twin(monkeypatch):
 
     monkeypatch.setenv("APEX_DEVICE", "cpu")
     monkeypatch.setenv("APEX_SEND_INTERVAL", "64")
+    monkeypatch.setenv("APEX_DP_BACKEND", "gloo")
     got = _defaults(cli.build_parser())
-    assert (got["device"], got["send_interval"]) == ("cpu", 64)
-    assert (base["device"], base["send_interval"]) == ("cuda", 50)
+    assert (got["device"], got["send_interval"], got["dp_backend"]) == (
+        "cpu", 64, "gloo")
+    assert (base["device"], base["send_interval"], base["dp_backend"]) == (
+        "cuda", 50, "nccl")
 
 
 def _fields(section) -> dict:
@@ -165,7 +174,15 @@ def test_config_from_args_agrees_with_jax_on_every_shared_field(
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--role", "apex", "--mesh-dp", "2"], "item 4"),
+    (["--role", "apex", "--mesh-dp", "2", "--rollout", "fused"],
+     "slice 14"),
+    (["--role", "learner", "--mesh-dp", "2", "--rollout", "ondevice"],
+     "slice 14"),
+    (["--role", "learner", "--mesh-dp", "2", "--replay-shards", "2"],
+     "slice 14"),
+    (["--role", "apex", "--mesh-dp", "2", "--dp-backend", "gloo",
+      "--device", "cpu", "--env-id", "ApexCartPole-v0", "--capacity",
+      "1024", "--checkpoint-dir", "/nonexistent"], "slice 14"),
 ])
 def test_unported_paths_exit_2_naming_their_item(monkeypatch, capsys, argv,
                                                  item):
@@ -173,6 +190,37 @@ def test_unported_paths_exit_2_naming_their_item(monkeypatch, capsys, argv,
     assert cli.main(argv) == 2
     err = capsys.readouterr().err
     assert f"ROADMAP {item}" in err, err
+
+
+def test_apex_role_trains_two_gloo_ranks_on_the_cpu(monkeypatch):
+    """``--mesh-dp 2 --dp-backend gloo --device cpu``: rank 0 in this
+    process, rank 1 and one actor spawned, both ranks take every step, and
+    ``main`` returns 0 with no process left."""
+    import multiprocessing as mp
+
+    from apex_tpu_torch.training.apex import ApexTrainer
+
+    _clear_env(monkeypatch)
+    seen = []
+    real_train = ApexTrainer.train
+
+    def train(self, *args, **kwargs):
+        seen.append(self)
+        return real_train(self, *args, **kwargs)
+
+    monkeypatch.setattr(ApexTrainer, "train", train)
+    argv = ["--role", "apex", "--env-id", "ApexCartPole-v0", "--frame-stack",
+            "1", "--n-actors", "1", "--send-interval", "16", "--warmup",
+            "64", "--batch-size", "16", "--capacity", "1024",
+            "--total-steps", "8", "--max-seconds", "120", "--mesh-dp", "2",
+            "--dp-backend", "gloo", "--device", "cpu"]
+    before = set(mp.active_children())
+    assert cli.main(argv) == 0
+    (trainer,) = seen
+    assert trainer.n_dp == 2 and trainer.dp_backend == "gloo"
+    assert trainer.steps_rate.total == 8
+    assert [rec["steps"] for rec in trainer.dp_rank_stats.values()] == [8, 8]
+    assert set(mp.active_children()) <= before
 
 
 def _free_port() -> int:
