@@ -19,7 +19,11 @@ A whole JAX checkpoint crosses with :func:`train_state_from_flax`,
 They take the bundle's raw numpy tree: ``load_jax_bundle(path)[0]`` of
 :mod:`apex_tpu_torch.training.checkpoint` reads it on any host (pure
 Python, no ``msgpack`` or ``flax``), leaf for leaf what ``load_raw`` of
-:mod:`apex_tpu.training.checkpoint` returns on a host with JAX.
+:mod:`apex_tpu.training.checkpoint` returns on a host with JAX.  A
+sharded learner's bundle (``learner.mesh_shape`` above 1) holds its
+replay stacked ``[dp, ...]``, one row per chip; the three replay
+functions take ``shard=r`` to carry row r into the state of the port's
+rank r (``apex_tpu/parallel/learner.py:90-104``).
 """
 
 from __future__ import annotations
@@ -152,6 +156,37 @@ def _aql_opt_state(raw_opt: dict, model: nn.Module) -> AQLOptState:
     return AQLOptState(**groups)
 
 
+def _take_shard(raw: dict, shard: int | None) -> dict:
+    """Row ``shard`` of every leaf of a stacked replay tree; the tree as it
+    is for ``shard=None``, which a stacked tree refuses."""
+    stacked = np.asarray(raw["sum_tree"]).ndim == 2
+    if shard is None:
+        if stacked:
+            raise ValueError(
+                "a stacked replay state (a sharded learner's, [dp, ...]): "
+                "pass shard= the rank whose row to carry")
+        return raw
+    if not stacked:
+        raise ValueError(f"shard={shard} of a replay state that is not "
+                         f"stacked")
+
+    def row(x):
+        if isinstance(x, dict):
+            return {k: row(v) for k, v in x.items()}
+        return np.asarray(x)[shard]
+
+    return row(raw)
+
+
+def _ring_rows(frames, pool) -> torch.Tensor:
+    """A JAX frame ring, tile-padded rows, as the port's ``[F, D]`` host
+    tensor: each row's first ``frame_dim`` elements (a view where that is
+    the whole row and the buffer is writable, else a copy)."""
+    rows = np.asarray(frames).reshape(pool.f_capacity, -1)[:, :pool.frame_dim]
+    rows = np.ascontiguousarray(rows)
+    return torch.from_numpy(rows if rows.flags.writeable else rows.copy())
+
+
 def _check_capacity(raw: dict, capacity: int) -> None:
     saved = np.asarray(raw["sum_tree"]).shape[0] // 2
     if saved != capacity:
@@ -159,12 +194,14 @@ def _check_capacity(raw: dict, capacity: int) -> None:
 
 
 def frame_pool_state_from_jax(raw: dict, pool: FramePoolReplay,
-                              device: torch.device | str) -> FramePoolState:
+                              device: torch.device | str,
+                              shard: int | None = None) -> FramePoolState:
     """The port's frame-pool state from a JAX bundle's ``replay_state``
-    tree.  The JAX ring pads each row to whole (8, 128) tiles; the port's
-    is unpadded, so each row keeps its first ``frame_dim`` elements.  The
-    sidecars (``extras``, the AQL family's candidate sets) are the pool's
-    ``extra_spec``."""
+    tree (row ``shard`` of a stacked one).  The JAX ring pads each row to
+    whole (8, 128) tiles; the port's is unpadded, so each row keeps its
+    first ``frame_dim`` elements.  The sidecars (``extras``, the AQL
+    family's candidate sets) are the pool's ``extra_spec``."""
+    raw = _take_shard(raw, shard)
     _check_capacity(raw, pool.capacity)
     saved = sorted((raw.get("extras") or {}).keys())
     if saved != sorted(name for name, _ in pool.extra_spec):
@@ -174,10 +211,8 @@ def frame_pool_state_from_jax(raw: dict, pool: FramePoolReplay,
     def put(name):
         return torch.from_numpy(np.array(raw[name])).to(device)
 
-    frames = np.asarray(raw["frames"]).reshape(pool.f_capacity, -1)
     return FramePoolState(
-        frames=torch.from_numpy(
-            np.ascontiguousarray(frames[:, :pool.frame_dim])).to(device),
+        frames=_ring_rows(raw["frames"], pool).to(device),
         action=put("action"), reward=put("reward"),
         discount=put("discount"), obs_ids=put("obs_ids"),
         next_ids=put("next_ids"), frame_epoch=put("frame_epoch"),
@@ -189,22 +224,22 @@ def frame_pool_state_from_jax(raw: dict, pool: FramePoolReplay,
 
 
 def seq_pool_state_from_jax(raw: dict, pool: SequenceFramePoolReplay,
-                            device: torch.device | str
+                            device: torch.device | str,
+                            shard: int | None = None
                             ) -> SequenceFramePoolState:
     """The port's pooled sequence state from a JAX bundle's
-    ``replay_state`` tree.  A JAX ring the Pallas gather may read is
-    stored tile-padded, ``[F, 8, row_dim/8]`` (84x84 frames pad to 7168,
-    42x42 to 2048); the port's is ``[F, D]``, so each row keeps its first
-    ``frame_dim`` elements."""
+    ``replay_state`` tree (row ``shard`` of a stacked one).  A JAX ring
+    the Pallas gather may read is stored tile-padded, ``[F, 8,
+    row_dim/8]`` (84x84 frames pad to 7168, 42x42 to 2048); the port's is
+    ``[F, D]``, so each row keeps its first ``frame_dim`` elements."""
+    raw = _take_shard(raw, shard)
     _check_capacity(raw, pool.capacity)
 
     def put(name):
         return torch.from_numpy(np.array(raw[name])).to(device)
 
-    frames = np.asarray(raw["frames"]).reshape(pool.f_capacity, -1)
     return SequenceFramePoolState(
-        frames=torch.from_numpy(
-            np.ascontiguousarray(frames[:, :pool.frame_dim])).to(device),
+        frames=_ring_rows(raw["frames"], pool).to(device),
         **{name: put(name) for name in (
             "action", "reward", "discount", "mask", "state_c", "state_h",
             "obs_ids", "frame_epoch", "sum_tree", "min_tree",
@@ -214,12 +249,15 @@ def seq_pool_state_from_jax(raw: dict, pool: SequenceFramePoolReplay,
 
 
 def device_replay_state_from_jax(raw: dict, replay: DeviceReplay,
-                                 device: torch.device | str) -> ReplayState:
+                                 device: torch.device | str,
+                                 shard: int | None = None) -> ReplayState:
     """The port's :class:`ReplayState` from a JAX bundle's
-    ``replay_state`` tree (a :class:`apex_tpu.replay.device.ReplayState`)."""
+    ``replay_state`` tree (a :class:`apex_tpu.replay.device.ReplayState`;
+    row ``shard`` of a stacked one)."""
     def put(x):
         return torch.from_numpy(np.array(x)).to(device)
 
+    raw = _take_shard(raw, shard)
     _check_capacity(raw, replay.capacity)
     return ReplayState(
         storage={name: put(x) for name, x in raw["storage"].items()},

@@ -413,4 +413,7 @@ def main(argv: list[str] | None = None) -> int:
 
 
 if __name__ == "__main__":
+    # whole lines on an output shared with the fleet's other processes
+    # (apex_tpu_torch/runtime/__main__.py)
+    sys.stdout.reconfigure(line_buffering=True, write_through=False)
     raise SystemExit(main())

@@ -38,6 +38,7 @@ import argparse
 import glob
 import json
 import os
+import sys
 
 
 def load_offsets(summary: dict) -> dict[str, float]:
@@ -170,4 +171,7 @@ def main(argv: list[str] | None = None) -> int:
 
 
 if __name__ == "__main__":
+    # whole lines on an output shared with the fleet's other processes
+    # (apex_tpu_torch/runtime/__main__.py)
+    sys.stdout.reconfigure(line_buffering=True, write_through=False)
     raise SystemExit(main())

@@ -1,7 +1,7 @@
 """The fused train step: the whole Ape-X cycle on the card, the host in its
 epilogue only.
 
-Counterpart of :mod:`apex_tpu.ondevice.fused` at dp = 1.  One
+Counterpart of :mod:`apex_tpu.ondevice.fused`.  One
 :meth:`FusedStep.dispatch` runs ``steps_per_dispatch`` macro steps of
 
     rollout segment (AnakinRollout.dispatch)
@@ -40,10 +40,36 @@ Contracts carried over (``fused.py:21-39``):
 
 The acting priorities are the host builder's two rounded f32 ops
 (:func:`acting_priorities`); JAX's program contracts them into one FMA,
-so the two agree within 1 ulp.  Not ported: ``FusedStep``'s dp
-(``shard_map`` over lanes and replay partitions,
-``apex_tpu/ondevice/fused.py:58-60,123-126``; ROADMAP slice 14), so
-:class:`FusedApexTrainer` refuses ``learner.mesh_shape`` above 1.
+so the two agree within 1 ulp.
+
+**dp** (``learner.mesh_shape`` above 1, ``apex_tpu/ondevice/fused.py:
+53-63,123-172,276-285,324-410``): where JAX maps the whole macro scan
+over the mesh, each rank of :mod:`apex_tpu_torch.parallel` runs its own
+:class:`FusedStep` in lockstep with the others:
+
+* the env lanes split into contiguous blocks: rank r's engine owns lanes
+  ``[r*B/dp, (r+1)*B/dp)``, with their epsilons and slot ids (JAX's
+  per-chip engine is a copy with ``B/dp``);
+* each rank ingests into its own replay shard, and each train slot
+  samples ``batch_size / dp`` from it, with the IS normalizer's max over
+  the group and the update meaned over it;
+* per macro, one host all-gather sums the ranks' ``delta`` and
+  ``sealed_n`` (``n_trans`` is the same count) and takes the max of their
+  ``sealed_max`` (JAX's ``psum``/``pmax``), so warm-up, the beta anneal
+  and the ``train_ratio`` budget stay global and equal on every rank, and
+  an outbox overflow raises on every rank;
+* each rank draws from its own generators: its engine's (seeded for its
+  lane band, :func:`~apex_tpu_torch.training.anakin.make_anakin_engine`)
+  and its PER uniforms' (rank 0 keeps the dp = 1 seed), in the order JAX
+  fans its keys: one engine draw block per macro, one ``f32[P,
+  batch/dp]`` uniform block per macro;
+* the episode tallies come back in global lane order, with each rank's
+  shard size, through one host all-gather per dispatch.
+
+:class:`FusedApexTrainer` at dp > 1 is rank 0: it sends the other ranks a
+``fused`` op per dispatch (and the host plan's ``ingest`` op for a hybrid
+pool's chunks), and runs the ranks' lifecycle of
+:class:`~apex_tpu_torch.training.apex.ConcurrentTrainer`.
 """
 
 from __future__ import annotations
@@ -60,6 +86,7 @@ from apex_tpu_torch.fleet.heartbeat import HeartbeatEmitter
 from apex_tpu_torch.fleet.registry import FleetRegistry
 from apex_tpu_torch.obs import spans as obs_spans
 from apex_tpu_torch.obs.trace import get_ring, set_process_label
+from apex_tpu_torch.parallel.aggregate import split_group
 from apex_tpu_torch.training.anakin import (acting_priorities, host_arrays,
                                             make_anakin_engine)
 from apex_tpu_torch.training.apex import ApexTrainer
@@ -79,11 +106,21 @@ class FusedStep:
 
     def __init__(self, core, replay, engine, *, warmup: int, beta: float,
                  beta_anneal: int, steps_per_dispatch: int = 4,
-                 train_per_step: int = 1, train_ratio: float | None = None):
+                 train_per_step: int = 1, train_ratio: float | None = None,
+                 n_dp: int = 1):
         if steps_per_dispatch < 1 or train_per_step < 1:
             raise ValueError(
                 f"steps_per_dispatch={steps_per_dispatch} and "
                 f"train_per_step={train_per_step} must be >= 1")
+        self.n_dp = int(n_dp)
+        check_dp_fit(core.batch_size, engine.B * self.n_dp, self.n_dp)
+        # this rank's group (join); None at dp 1
+        self.group = None
+        self._batch_chip = core.batch_size // self.n_dp
+        # every rank's lane slot ids in global lane order, and every
+        # rank's shard size after the last dispatch (fleet_summary)
+        self.lane_ids = list(engine.slot_ids)
+        self.shard_sizes: list[int] = []
         self.core = core
         self.replay = replay
         self.engine = engine
@@ -111,6 +148,17 @@ class FusedStep:
         self.frames = 0
         self.transitions = 0
         self.external_ingest = 0
+
+    def join(self, group) -> None:
+        """Take this rank's dp ``group`` (its world must be ``n_dp``) and
+        learn every rank's lane slot ids."""
+        if group.world != self.n_dp:
+            raise ValueError(f"a group of {group.world} ranks for a fused "
+                             f"step of dp {self.n_dp}")
+        self.group = group
+        ids = group.all_gather_host(torch.tensor(self.engine.slot_ids,
+                                                 dtype=torch.int64))
+        self.lane_ids = [int(i) for i in ids.reshape(-1)]
 
     # -- the macro step ----------------------------------------------------
 
@@ -163,7 +211,7 @@ class FusedStep:
         return chunk, rows(prios)
 
     def _macro(self, ts, rs, offsets: torch.Tensor):
-        eng, replay = self.engine, self.replay
+        eng, replay, group = self.engine, self.replay, self.group
         out = eng.dispatch(ts.params)
         prios = acting_priorities(out)
         # the macro's one host read: seals and the sealed slots' counts
@@ -171,17 +219,25 @@ class FusedStep:
             [out["sealed"][:, None], out["nf"], out["nt"]], 1)})["c"]
         sealed = counts[:, 0]
         nf, nt = counts[:, 1:1 + eng.M], counts[:, 1 + eng.M:]
-        if sealed.max(initial=0) > eng.M - 1:
-            raise RuntimeError(
-                f"fused outbox overflow: {int(sealed.max())} seals > "
-                f"{eng.M - 1} sealed slots; raise rollout_len headroom")
         sel = [(b, j) for b in range(eng.B) for j in range(int(sealed[b]))]
+        delta = sum(int(nt[b, j]) for b, j in sel)
+        n_sealed, sealed_max = len(sel), int(sealed.max(initial=0))
+        if group is not None:
+            # warm-up, anneal and budget are global: every rank's ingest
+            # (one all-gather for JAX's psums and its pmax)
+            got = group.all_gather_host(torch.tensor(
+                [delta, n_sealed, sealed_max], dtype=torch.int64))
+            delta, n_sealed = int(got[:, 0].sum()), int(got[:, 1].sum())
+            sealed_max = int(got[:, 2].max())
+        if sealed_max > eng.M - 1:
+            raise RuntimeError(
+                f"fused outbox overflow: {sealed_max} seals > "
+                f"{eng.M - 1} sealed slots; raise rollout_len headroom")
         for i in range(0, len(sel), self._merge_cap):
             chunk, pr = self._merged_chunk(out, prios,
                                            sel[i:i + self._merge_cap], nf,
                                            nt)
             rs = replay.add(rs, chunk, pr)
-        delta = sum(int(nt[b, j]) for b, j in sel)
         self.ingested = min(self.ingested + delta, self._ing_cap)
         if self.ratio is not None:
             self.budget = min(
@@ -195,9 +251,10 @@ class FusedStep:
                 mask.append(go)
                 if not go:
                     continue
-                batch, weights, idx = replay.sample(rs, offsets[p], beta)
-                ts, new_prios, m = self.core.update_from_batch(ts, batch,
-                                                               weights)
+                batch, weights, idx = replay.sample(rs, offsets[p], beta,
+                                                    group=group)
+                ts, new_prios, m = self.core.update_from_batch(
+                    ts, batch, weights, group=group)
                 rs = replay.update_priorities(rs, idx, new_prios)
                 metrics.append(m)
                 if self.ratio is not None:
@@ -205,7 +262,7 @@ class FusedStep:
                         self.budget - np.float32(self.core.batch_size))
         else:
             mask = [False] * self.P
-        info = dict(metrics=metrics, mask=mask, chunks=len(sel),
+        info = dict(metrics=metrics, mask=mask, chunks=n_sealed,
                     transitions=delta, done=out["done"],
                     ep_ret=out["ep_ret"], ep_len=out["ep_len"])
         return ts, rs, info
@@ -214,13 +271,17 @@ class FusedStep:
 
     def dispatch(self, train_state, replay_state, offsets):
         """``steps_per_dispatch`` macro steps.  ``offsets(k)`` returns the
-        per-stratum uniforms ``f32[k, batch_size]`` of the macro's ``k =
-        train_per_step`` sample slots, drawn for every slot whether it
-        trains or not (the JAX program's pre-split sample keys).  Returns
-        ``(train_state, replay_state, info)``; ``info`` has the episode
-        stats, the mean metrics of the slots that trained (None when none
-        did), ``train_steps``, ``transitions`` and ``frames``."""
+        per-stratum uniforms ``f32[k, batch_size / dp]`` of the macro's
+        ``k = train_per_step`` sample slots, drawn for every slot whether
+        it trains or not (the JAX program's pre-split sample keys).
+        Returns ``(train_state, replay_state, info)``; ``info`` has the
+        episode stats (every rank's, in global lane order), the mean
+        metrics of the slots that trained (None when none did),
+        ``train_steps``, ``transitions`` and ``frames`` (all ranks')."""
         eng = self.engine
+        if self.n_dp > 1 and self.group is None:
+            raise RuntimeError(f"a fused step of dp {self.n_dp} runs on a "
+                               f"joined dp group (FusedStep.join)")
         macros = []
         for _ in range(self.N):
             train_state, replay_state, info = self._macro(
@@ -234,14 +295,27 @@ class FusedStep:
             **{f"m_{k}": torch.stack([m[k] for m in trained]).float()
                for k in (trained[0] if trained else {})}))
         done, ep_ret, ep_len = got["done"], got["ep_ret"], got["ep_len"]
-        stats = [EpisodeStat(eng.slot_ids[b], float(ep_ret[m, t, b]),
+        size = int(replay_state.size)
+        self.shard_sizes = [size]
+        if self.group is not None:
+            # every rank's tallies, in global lane order, and shard size
+            tally = np.stack([done, ep_ret, ep_len]).astype(np.float64)
+            rows = self.group.all_gather_host(torch.from_numpy(
+                np.append(tally.reshape(-1), float(size))))
+            self.shard_sizes = [int(v) for v in rows[:, -1]]
+            full = np.concatenate([r[:-1].numpy().reshape(tally.shape)
+                                   for r in rows], axis=-1)
+            done, ep_ret, ep_len = (full[0] != 0, full[1].astype(np.float32),
+                                    full[2].astype(np.int64))
+        lanes = self.lane_ids
+        stats = [EpisodeStat(lanes[b], float(ep_ret[m, t, b]),
                              int(ep_len[m, t, b]))
                  for m in range(self.N) for t in range(eng.T)
-                 for b in range(eng.B) if done[m, t, b]]
+                 for b in range(len(lanes)) if done[m, t, b]]
         metrics = ({k[2:]: float(v.mean()) for k, v in got.items()
                     if k.startswith("m_")} if trained else None)
         transitions = sum(i["transitions"] for i in macros)
-        frames = self.N * eng.T * eng.B
+        frames = self.N * eng.T * eng.B * self.n_dp
         self.dispatches += 1
         self.macro_steps += self.N
         self.train_steps += len(trained)
@@ -283,8 +357,26 @@ class FusedStep:
                 "transitions": self.transitions,
                 "external_ingest": self.external_ingest,
                 "steps_per_dispatch": self.N, "train_per_step": self.P,
-                "train_ratio": float(self.ratio or 0.0),
-                "rollout_len": self.engine.T, "n_envs": self.engine.B}
+                "dp": self.n_dp, "train_ratio": float(self.ratio or 0.0),
+                "rollout_len": self.engine.T,
+                "n_envs": self.engine.B * self.n_dp}
+
+
+def check_dp_fit(batch_size: int, n_envs: int, n_dp: int) -> None:
+    """Raise a ``ValueError`` naming both knobs unless the batch and the env
+    lanes split evenly over ``n_dp`` ranks (``apex_tpu/ondevice/fused.py:
+    126-138``)."""
+    if batch_size % n_dp:
+        raise ValueError(
+            f"learner.batch_size={batch_size} must be divisible by the dp "
+            f"axis (dp={n_dp}, from learner.mesh_shape / --mesh-dp) — raise "
+            f"batch_size or shrink the mesh")
+    if n_envs % n_dp:
+        raise ValueError(
+            f"fused dp={n_dp} shards the env lanes: B={n_envs} envs "
+            f"(actor.n_actors x actor.n_envs_per_actor) % dp={n_dp} != 0 — "
+            f"align --n-envs-per-actor with the mesh (--mesh-dp / "
+            f"APEX_MESH_DP) so every rank gets whole lanes")
 
 
 class _IdlePool:
@@ -326,9 +418,14 @@ class FusedApexTrainer(ApexTrainer):
     trainer's: the fused plane beats into the registry as ``fused-0``
     (role ``rollout``, :meth:`FusedStep.counters` as gauges), a socket
     pool's learner serves ``--role status``, and the hot loop's dispatch
-    gaps land on the ``learner-fused-loop`` track of the trace ring.  Not
-    ported: ``FusedStep``'s dp (ROADMAP slice 14); a config whose
-    ``learner.mesh_shape`` is above 1 raises ``NotImplementedError``."""
+    gaps land on the ``learner-fused-loop`` track of the trace ring.
+
+    With ``learner.mesh_shape`` above 1 the whole fused step is sharded
+    (module docstring): this trainer is rank 0 and drives the other ranks
+    of the sharded plan (``dp_backend`` for the dp group), whose trainers
+    own the lane blocks ``lanes=(rank, world)`` names; the batch and the
+    env lanes must split evenly over the ranks, and the ``ValueError``
+    names both knobs."""
 
     def __init__(self, config: ApexConfig | None = None, pool=None,
                  train_ratio: float | None = None,
@@ -339,37 +436,79 @@ class FusedApexTrainer(ApexTrainer):
                  respawn_workers: bool = True,
                  checkpoint_dir: str | None = None,
                  rollout_len: int | None = None,
-                 steps_per_dispatch: int = 4, train_per_step: int = 1):
+                 steps_per_dispatch: int = 4, train_per_step: int = 1,
+                 dp_backend: str = "nccl",
+                 lanes: tuple[int, int] | None = None):
         cfg = config or ApexConfig()
-        if int(np.prod(cfg.learner.mesh_shape)) > 1:
-            raise NotImplementedError(
-                f"FusedStep's dp (learner.mesh_shape="
-                f"{cfg.learner.mesh_shape}): not ported yet, ROADMAP "
-                f"slice 14")
         # an env without a device port refuses here, before anything is
         # built on the card
         make_device_env(cfg.env.env_id, cfg.env, device="cpu")
+        rank, world = lanes or (0, int(np.prod(cfg.learner.mesh_shape)))
+        n_envs = max(cfg.actor.n_actors, 1) * max(
+            1, cfg.actor.n_envs_per_actor)
+        check_dp_fit(cfg.learner.batch_size, n_envs, world)
         super().__init__(cfg, pool=pool if pool is not None else _IdlePool(),
                          train_ratio=train_ratio, device=device,
                          logdir=logdir, verbose=verbose,
                          publish_min_seconds=publish_min_seconds,
                          min_train_ratio=min_train_ratio,
                          respawn_workers=respawn_workers,
-                         checkpoint_dir=checkpoint_dir)
-        engine = make_anakin_engine(cfg, rollout_len=rollout_len,
-                                    device=self.device,
-                                    model=self.train_state.params)
+                         checkpoint_dir=checkpoint_dir,
+                         dp_backend=dp_backend)
+        engine = make_anakin_engine(
+            cfg, rollout_len=rollout_len, device=self.device,
+            model=self.train_state.params, n_envs=n_envs // world,
+            slot_band=rank, total_slots=n_envs)
         self.fused = FusedStep(
             self.core, self.replay, engine, warmup=cfg.replay.warmup,
             beta=cfg.replay.beta, beta_anneal=cfg.replay.beta_anneal,
             steps_per_dispatch=steps_per_dispatch,
+            train_per_step=train_per_step, train_ratio=train_ratio,
+            n_dp=world)
+        # the other ranks' trainers: the same fused knobs, their lanes
+        self._dp_kwargs = dict(
+            rollout_len=rollout_len, steps_per_dispatch=steps_per_dispatch,
             train_per_step=train_per_step, train_ratio=train_ratio)
+
+    @classmethod
+    def _dp_follower_kwargs(cls, kwargs: dict, rank: int,
+                            world: int) -> dict:
+        return dict(kwargs, lanes=(rank, world))
+
+    def _join_dp(self, group) -> None:
+        super()._join_dp(group)
+        self.fused.join(group)
+
+    def _fused_offsets(self, k: int) -> torch.Tensor:
+        """This rank's uniforms of ``k`` sample slots, ``f32[k, batch /
+        dp]``, from its generator."""
+        return self._offsets(k, self.fused._batch_chip)
+
+    def _fused_dispatch(self) -> dict:
+        self.train_state, self.replay_state, info = self.fused.dispatch(
+            self.train_state, self.replay_state, self._fused_offsets)
+        return info
+
+    def _follow_op(self, msg: dict) -> None:
+        op = msg["op"]
+        if op == "fused":
+            self.steps_rate.tick(self._fused_dispatch()["train_steps"])
+            return
+        super()._follow_op(msg)
+        if op == "ingest":
+            # a hybrid pool's chunks count toward the global counters
+            self.fused.note_external_ingest(int(msg["n_trans"]))
+
+    def _apply_dp_counters(self, counters: dict) -> None:
+        super()._apply_dp_counters(counters)
+        self.fused.sync_ingested(self.ingested, steps=self.steps_rate.total)
 
     def train(self, total_steps: int, max_seconds: float = 3600.0,
               log_every: int = 200):
         """Run at least ``total_steps`` more learner updates: a dispatch
         may overshoot by up to ``steps_per_dispatch * train_per_step - 1``.
-        Stops early at ``max_seconds`` or :meth:`request_stop`."""
+        Stops early at ``max_seconds`` or :meth:`request_stop`.  At dp > 1
+        the first call starts the other ranks, which park between calls."""
         cfg = self.cfg
         pool = self.pool
         target_steps = self.steps_rate.total + total_steps
@@ -381,7 +520,13 @@ class FusedApexTrainer(ApexTrainer):
             ring=ring, track="learner-fused-loop")
         if self.fleet is None:
             self.fleet = FleetRegistry(cfg.comms)
-        pool.start()
+        try:
+            if self.n_dp > 1:
+                self._dp_open()
+            self._start_pool()
+        except BaseException:
+            self._dp_end(graceful=False)
+            raise
         set_epoch = getattr(pool, "set_learner_epoch", None)
         if set_epoch is not None:
             set_epoch(self.learner_epoch)
@@ -392,12 +537,13 @@ class FusedApexTrainer(ApexTrainer):
             "fused-0", role="rollout",
             interval_s=cfg.comms.heartbeat_interval_s,
             gauges_fn=self.fused.counters)
+        finished = False
         try:
             self._publish()
             last_publish = time.monotonic()
             t_end = last_publish + max_seconds
             last_pub_step = self.steps_rate.total
-            last_health = last_publish
+            last_health = last_rank_check = last_publish
             self._episode_idx = 0
             metrics = None
             while self.steps_rate.total < target_steps:
@@ -405,10 +551,15 @@ class FusedApexTrainer(ApexTrainer):
                 stop = self._stop_requested
                 if now > t_end or (stop is not None and stop.is_set()):
                     break
+                if self._ranks is not None and now - last_rank_check >= 0.5:
+                    # a dead rank fails train() here, not in a collective
+                    # that waits out its timeout
+                    self._ranks.check()
+                    last_rank_check = now
                 gap.about_to_dispatch()
-                self.train_state, self.replay_state, info = \
-                    self.fused.dispatch(self.train_state, self.replay_state,
-                                        self._offsets)
+                if self._dp is not None:
+                    self._dp_send("fused")
+                info = self._fused_dispatch()
                 gap.dispatch_returned()
                 if info["train_steps"]:
                     self.steps_rate.tick(info["train_steps"])
@@ -422,13 +573,20 @@ class FusedApexTrainer(ApexTrainer):
                          "episode_length": stat.length,
                          "actor_id": stat.actor_id}, self._episode_idx)
                     self._episode_idx += 1
-                # hybrid: a given pool's chunks are ingested between
-                # dispatches; the fused step owns the train cadence
+                # hybrid: a given pool's chunks (a group of one per rank
+                # at dp > 1) are ingested between dispatches; the fused
+                # step owns the train cadence
                 for msg in pool.poll_chunks(64, timeout=0):
-                    self.replay_state = self.core.ingest(
-                        self.replay_state, msg["payload"],
-                        msg["priorities"])
                     n_new = int(msg["n_trans"])
+                    if self.n_dp > 1:
+                        parts = split_group(msg["payload"],
+                                            msg["priorities"], self.n_dp)
+                        self._dp_dispatch("ingest", *parts[0], parts[1:],
+                                          n_new)
+                    else:
+                        self.replay_state = self.core.ingest(
+                            self.replay_state, msg["payload"],
+                            msg["priorities"])
                     self.ingested += n_new
                     self.frames_rate.tick(n_new)
                     self.fused.note_external_ingest(n_new)
@@ -474,17 +632,39 @@ class FusedApexTrainer(ApexTrainer):
                         | self._obs.scalars(),
                         steps)
                     self._last_log = steps
+            finished = True
         finally:
             if self._fleet_status is not None:
                 self._fleet_status.stop()
                 self._fleet_status = None
             self._dump_fleet_summary()
             pool.cleanup()
+            self._dp_end(graceful=finished)
             stop = self._stop_requested
             if stop is not None:
                 stop.clear()
         return self
 
+    def fleet_summary(self) -> dict | None:
+        """:meth:`ConcurrentTrainer.fleet_summary` with the fused plane's
+        counters and every rank's shard size as ``metrics.ondevice``
+        (``apex_tpu/ondevice/fused.py:702-715``)."""
+        snap = super().fleet_summary()
+        if snap is not None:
+            ond = self.fused.counters()
+            ond["pool_size_per_shard"] = list(
+                self.fused.shard_sizes or [int(self.replay_state.size)])
+            snap["metrics"]["ondevice"] = ond
+        return snap
+
     def _apply_counters(self, meta: dict) -> None:
         super()._apply_counters(meta)
         self.fused.sync_ingested(self.ingested, steps=self.steps_rate.total)
+
+    def apply_hparams(self, h: dict) -> dict:
+        """:meth:`ConcurrentTrainer.apply_hparams`; a live lr rebuilds the
+        core, which the fused step takes too (``apex_tpu/ondevice/
+        fused.py:722-729``)."""
+        applied = super().apply_hparams(h)
+        self.fused.core = self.core
+        return applied

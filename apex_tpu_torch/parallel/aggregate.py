@@ -80,15 +80,17 @@ class ChunkAggregator:
     def needs_warmup_republish(self):
         return getattr(self.pool, "needs_warmup_republish", False)
 
-    # failure detection and the socket pool's fleet surface pass through,
-    # so a sharded run keeps respawn-on-death (the trainer feature-detects
-    # them with hasattr)
+    # failure detection, the socket pool's fleet surface and an on-device
+    # pool's device-params flag and counters pass through, so a sharded run
+    # keeps respawn-on-death and publishes to an AnakinPool as the
+    # unsharded one does (the trainer feature-detects them with hasattr)
 
     def __getattr__(self, name):
         if name in ("dead_workers", "respawn_worker", "worker_deaths",
                     "silent_peers", "peer_seen", "wire_rejected",
                     "set_learner_epoch", "rejoin_admitted",
-                    "acks_withheld", "wire_summary", "force_keyframe"):
+                    "acks_withheld", "wire_summary", "force_keyframe",
+                    "accepts_device_params", "ondevice_counters"):
             return getattr(self.pool, name)
         raise AttributeError(name)
 

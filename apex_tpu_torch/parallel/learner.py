@@ -24,11 +24,26 @@ runs the same body on its own state:
 
 The steps take the per-stratum uniforms (``offsets``, ``f32[batch/dp]``)
 where the JAX steps take one key per chip.
+
+The replay service's batches (``apex_tpu/training/apex.py:1221-1273``):
+:func:`split_batch` cuts a pulled batch into contiguous per-rank blocks of
+``batch / dp``, each rank updates on its block with the gradients meaned
+over the group (:meth:`ShardedLearner.make_batch_train`), and the
+per-rank priorities come back as ``[batch]`` in sample order, so the
+write-back's ``idx`` is the batch's own.
+
+Checkpoints hold the replay in JAX's stacked layout, every field with a
+leading ``[dp]`` axis in rank order (``apex_tpu/parallel/learner.py:
+90-104``): :func:`gather_shards` streams the ranks' shards into it on
+rank 0 and :func:`scatter_shards` streams it back, both over the host
+group (:meth:`~apex_tpu_torch.parallel.mesh.DpGroup.gather_tensors`).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -66,6 +81,28 @@ def per_rank_batch(batch_size: int, n_dp: int) -> int:
             f"axis (dp={n_dp}, from learner.mesh_shape) — raise batch_size "
             f"or shrink the mesh")
     return per_chip
+
+
+def split_batch(batch: dict, weights, n_dp: int) -> list[tuple]:
+    """A pulled batch (host arrays, ``[B, ...]`` leaves; an ``obs_pair``
+    leaf is ``[2B, ...]``, the observations then the next ones) and its IS
+    weights as ``n_dp`` contiguous blocks of ``B / n_dp`` rows, rank r's
+    rows ``[r*B/n_dp, (r+1)*B/n_dp)``: ``[(batch_r, weights_r), ...]``."""
+    weights = np.asarray(weights, np.float32)
+    b = per_rank_batch(weights.shape[0], n_dp)
+    total = weights.shape[0]
+
+    def block(x, r, pair=False):
+        if isinstance(x, dict):
+            return {k: block(v, r, k == "obs_pair") for k, v in x.items()}
+        x = np.asarray(x)
+        rows = slice(r * b, (r + 1) * b)
+        if pair:
+            return np.concatenate([x[rows], x[total:][rows]])
+        return x[rows]
+
+    return [(block(batch, r), weights[r * b:(r + 1) * b])
+            for r in range(n_dp)]
 
 
 @dataclass(frozen=True)
@@ -121,6 +158,25 @@ class ShardedLearner:
 
         return fused
 
+    def make_batch_train(self):
+        """``(ts, batch, weights) -> (ts, priorities, metrics)``: this
+        rank's block of a pulled batch (:func:`split_batch`), the family's
+        update meaned over the group, and every rank's priorities in rank
+        order, ``[batch]`` (``apex_tpu/training/apex.py:1239-1267``)."""
+        core, group = self.core, self.group
+        per_chip = self._per_chip_batch()
+
+        def train(ts, batch, weights):
+            weights = torch.as_tensor(weights).to(group.device)
+            if weights.shape[0] != per_chip:
+                raise ValueError(f"a batch block of {weights.shape[0]} "
+                                 f"rows; this rank trains on {per_chip}")
+            ts, priorities, metrics = core.update_from_batch(
+                ts, batch, weights, group=group)
+            return ts, group.all_gather_blocks(priorities), metrics
+
+        return train
+
     def make_ingest(self):
         """``(rs, chunk, prios) -> rs``: ingest only (before warm-up)."""
         core = self.core
@@ -173,6 +229,120 @@ class ShardedLearner:
             return x.reshape(k // n, n, *x.shape[1:]).swapaxes(0, 1)
 
         return ({k: split(v) for k, v in batch.items()}, split(prios))
+
+
+# -- shard transfer (checkpoints) --------------------------------------------
+
+def state_leaves(state) -> tuple[list, list]:
+    """A replay state's tensors and host numbers, each as ``(path,
+    value)`` in field order; a dict field's entries (the frame pool's
+    sidecars, the stacked replay's storage) as ``field/key``, sorted."""
+    tensors, numbers = [], []
+    for f in dataclasses.fields(state):
+        value = getattr(state, f.name)
+        if isinstance(value, dict):
+            tensors += [(f"{f.name}/{k}", value[k]) for k in sorted(value)]
+        elif isinstance(value, torch.Tensor):
+            tensors.append((f.name, value))
+        else:
+            numbers.append((f.name, int(value)))
+    return tensors, numbers
+
+
+def _put(tree: dict, path: str, value) -> None:
+    head, _, rest = path.partition("/")
+    if rest:
+        _put(tree.setdefault(head, {}), rest, value)
+    else:
+        tree[head] = value
+
+
+def _get(tree: dict, path: str):
+    for part in path.split("/"):
+        tree = tree[part]
+    return tree
+
+
+def gather_shards(group: DpGroup, state, extra: tuple = ()) -> tuple:
+    """Every rank calls it with its replay ``state`` and ``extra`` host
+    tensors (its generators' states; same shapes on every rank).  Rank 0
+    returns ``(stacked, extra_stacked)``: the replay in JAX's stacked
+    layout, ``{field: [dp, ...] tensor}`` on the host with the host
+    numbers as ``int64[dp]`` and dict fields nested, and each extra tensor
+    stacked ``[dp, ...]``; the other ranks return ``(None, None)``.  The
+    tensors stream over the host group one field and one slice at a time
+    (:meth:`DpGroup.gather_tensors`)."""
+    tensors, numbers = state_leaves(state)
+    flat = [t for _, t in tensors] + [torch.as_tensor(x) for x in extra]
+    nums = group.all_gather_host(torch.tensor(
+        [v for _, v in numbers], dtype=torch.int64).reshape(-1))
+    out = None
+    if group.rank == 0:
+        out = [torch.empty((group.world,) + tuple(t.shape), dtype=t.dtype)
+               for t in flat]
+    group.gather_tensors(flat, out)
+    if group.rank != 0:
+        return None, None
+    stacked: dict = {}
+    for (path, _), t in zip(tensors, out):
+        _put(stacked, path, t)
+    for i, (path, _) in enumerate(numbers):
+        _put(stacked, path, nums[:, i].clone())
+    return stacked, out[len(tensors):]
+
+
+def tile_shard(state, world: int) -> dict:
+    """``world`` copies of ``state`` in the stacked layout, on the host:
+    the shards of ranks that never started, each as fresh as this one."""
+    tensors, numbers = state_leaves(state)
+    out: dict = {}
+    for path, t in tensors:
+        host = t.detach().to("cpu")
+        _put(out, path, host.unsqueeze(0).repeat(world, *[1] * host.dim()))
+    for path, value in numbers:
+        _put(out, path, torch.full((world,), value, dtype=torch.int64))
+    return out
+
+
+def unstack_shard(state, stacked: dict, rank: int) -> None:
+    """Row ``rank`` of a stacked replay into ``state`` in place (shapes and
+    dtypes checked, the host numbers set)."""
+    tensors, numbers = state_leaves(state)
+    for path, t in tensors:
+        row = _get(stacked, path)[rank]
+        if tuple(row.shape) != tuple(t.shape) or row.dtype != t.dtype:
+            raise ValueError(
+                f"checkpoint replay_state/{path}: {tuple(row.shape)} "
+                f"{row.dtype} does not fit {tuple(t.shape)} {t.dtype}")
+        t.copy_(row)
+    for path, _ in numbers:
+        setattr(state, path, int(_get(stacked, path)[rank]))
+
+
+def shard_numbers(stacked: dict, state, rank: int) -> dict:
+    """Rank ``rank``'s host numbers of a stacked replay, by field."""
+    return {path: int(_get(stacked, path)[rank])
+            for path, _ in state_leaves(state)[1]}
+
+
+def scatter_shards(group: DpGroup, state, stacked: dict | None = None,
+                   extra: tuple = (), extra_stacked: tuple = (),
+                   numbers: dict | None = None) -> None:
+    """The reverse of :func:`gather_shards` for ranks >= 1: every rank
+    calls it; rank 0 holds ``stacked`` (and ``extra_stacked``) and keeps
+    its own state as it is (it restored row 0 itself, :func:`unstack_shard`);
+    each other rank receives its row into ``state``'s tensors and
+    ``extra`` in place and takes its host ``numbers`` (sent beside the
+    op, :func:`shard_numbers`)."""
+    tensors, _ = state_leaves(state)
+    flat = [t for _, t in tensors] + list(extra)
+    rows = None
+    if group.rank == 0:
+        rows = [_get(stacked, p) for p, _ in tensors] + list(extra_stacked)
+    group.scatter_tensors(flat, rows)
+    if group.rank != 0:
+        for path, value in (numbers or {}).items():
+            setattr(state, path, int(value))
 
 
 class NoActors:

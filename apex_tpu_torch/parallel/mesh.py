@@ -21,11 +21,19 @@ explicit calls on two ``torch.distributed`` process groups:
   the chunks of the other ranks (:meth:`DpGroup.send_ops`).
 
 The collectives call the process group objects' own ``allreduce`` /
-``broadcast`` / ``scatter`` and wait on their ``Work``, so the same code
+``broadcast`` / ``scatter`` / ``allgather`` / ``send`` / ``recv`` and wait
+on their ``Work``, so the same code
 runs on groups :func:`init_dp` builds over a store and on bare groups
 built by several threads of one process over a ``HashStore`` (the tests'
 ranks).  No group is registered with ``torch.distributed``'s default-group
 machinery: one process may hold several.
+
+Replay shards move between ranks as tensors, never through the op
+channel: :meth:`DpGroup.gather_tensors` streams every rank's tensors into
+rank 0's host tensors, and :meth:`DpGroup.scatter_tensors` streams rank
+0's host tensors into each rank's, one tensor and one slice of at most
+:data:`TRANSFER_BYTES` at a time over the host group, so neither side
+holds a second copy of a shard (checkpoints of a sharded learner).
 
 A group never picks a backend or a device its caller did not ask for:
 NCCL with fewer cards than ranks raises, naming gloo, and only a caller
@@ -56,6 +64,10 @@ from apex_tpu_torch.runtime import wire
 DEFAULT_TIMEOUT_S = 120.0
 #: loopback: every rank of a group runs on rank 0's host
 HOST = "127.0.0.1"
+#: bytes of one slice of a shard transfer (a send / recv of the host group)
+TRANSFER_BYTES = 64 * 2 ** 20
+#: seconds between a parked rank's looks at the store
+PARK_POLL_S = 0.05
 
 
 def check_backend(world: int, backend: str,
@@ -105,9 +117,11 @@ class DpGroup:
     device: torch.device
     dp: Any
     host: Any
+    store: Any = None
     stats: dict = field(default_factory=lambda: {
         "allreduce_calls": 0, "allreduce_s": 0.0, "allreduce_bytes": 0,
-        "max_calls": 0, "ops_sent": 0, "op_bytes": 0})
+        "max_calls": 0, "ops_sent": 0, "op_bytes": 0,
+        "transfer_bytes": 0})
 
     # -- the dp group ------------------------------------------------------
 
@@ -165,6 +179,19 @@ class DpGroup:
                     t.copy_(flat[off:off + n].view_as(t))
                     off += n
 
+    @torch.no_grad()
+    def all_gather_blocks(self, block: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``block`` (same shape and dtype on each), concatenated
+        in rank order on every rank: each rank writes its block into zeros
+        at its offset and one SUM all-reduce adds them.  Adding zeros is
+        exact, and a SUM all-reduce runs on gloo's device tensors too."""
+        n = block.shape[0]
+        full = torch.zeros((self.world * n,) + tuple(block.shape[1:]),
+                           dtype=block.dtype, device=block.device)
+        full[self.rank * n:(self.rank + 1) * n] = block
+        self._all_reduce(full, dist.ReduceOp.SUM)
+        return full
+
     def broadcast_module_(self, module: nn.Module, src: int = 0) -> None:
         """``src``'s parameters and buffers into ``module`` on every rank."""
         self.broadcast_(list(module.state_dict().values()), src)
@@ -209,6 +236,118 @@ class DpGroup:
         self.host.scatter([out], [inputs], opts).wait()
         self.stats["ops_sent"] += 1
         self.stats["op_bytes"] += int(lens.sum())
+
+    def all_gather_host(self, tensor: torch.Tensor) -> torch.Tensor:
+        """Every rank's host ``tensor`` (same shape and dtype on each),
+        stacked ``[world, ...]`` in rank order, on every rank (one gloo
+        all-gather of the host group)."""
+        tensor = tensor.contiguous()
+        out = [torch.empty_like(tensor) for _ in range(self.world)]
+        self.host.allgather([out], [tensor]).wait()
+        return torch.stack(out)
+
+    def _slices(self, t: torch.Tensor):
+        if not t.is_contiguous():
+            raise ValueError("a shard transfer takes contiguous tensors")
+        flat = t.reshape(-1)
+        step = max(1, TRANSFER_BYTES // max(1, t.element_size()))
+        for a in range(0, flat.numel(), step):
+            yield a, min(flat.numel(), a + step)
+
+    @torch.no_grad()
+    def gather_tensors(self, tensors: list[torch.Tensor],
+                       out: list[torch.Tensor] | None = None) -> None:
+        """Every rank's ``tensors`` (same shapes and dtypes, in the same
+        order, on any device) into rank 0's ``out``: host tensors shaped
+        ``[world, *t.shape]``, row r rank r's.  Tensor by tensor, slice by
+        slice over the host group: a rank copies one slice to the host and
+        sends it, rank 0 receives it into its place in ``out`` and copies
+        its own rows in place, so no side holds a second copy."""
+        for i, t in enumerate(tensors):
+            if self.rank == 0:
+                dst = out[i]
+                if tuple(dst.shape) != (self.world,) + tuple(t.shape):
+                    raise ValueError(
+                        f"gather_tensors: out[{i}] of shape "
+                        f"{tuple(dst.shape)} for a tensor of shape "
+                        f"{tuple(t.shape)} on {self.world} ranks")
+                for a, b in self._slices(t):
+                    dst[0].reshape(-1)[a:b].copy_(t.reshape(-1)[a:b])
+                for r in range(1, self.world):
+                    row = dst[r].reshape(-1)
+                    for a, b in self._slices(t):
+                        part = row[a:b]
+                        self.host.recv([part], r, i).wait()
+                        self.stats["transfer_bytes"] += (
+                            part.numel() * part.element_size())
+            else:
+                for a, b in self._slices(t):
+                    part = t.reshape(-1)[a:b].to("cpu").contiguous()
+                    self.host.send([part], 0, i).wait()
+
+    @torch.no_grad()
+    def scatter_tensors(self, tensors: list[torch.Tensor],
+                        stacked: list[torch.Tensor] | None = None) -> None:
+        """The reverse of :meth:`gather_tensors`: rank 0's host
+        ``stacked[i][r]`` into rank r's ``tensors[i]`` for r >= 1, in place
+        on its device, slice by slice.  Rank 0's own ``tensors`` only give
+        the shapes; row 0 stays where it is."""
+        for i, t in enumerate(tensors):
+            if self.rank == 0:
+                src = stacked[i]
+                if tuple(src.shape) != (self.world,) + tuple(t.shape):
+                    raise ValueError(
+                        f"scatter_tensors: stacked[{i}] of shape "
+                        f"{tuple(src.shape)} for a tensor of shape "
+                        f"{tuple(t.shape)} on {self.world} ranks")
+                for r in range(1, self.world):
+                    row = src[r].reshape(-1)
+                    for a, b in self._slices(t):
+                        part = row[a:b].contiguous()
+                        self.host.send([part], r, i).wait()
+                        self.stats["transfer_bytes"] += (
+                            part.numel() * part.element_size())
+            else:
+                flat = t.reshape(-1)
+                for a, b in self._slices(t):
+                    part = torch.empty(b - a, dtype=t.dtype)
+                    self.host.recv([part], 0, i).wait()
+                    flat[a:b].copy_(part)
+
+    # -- parking: ranks between rank 0's sessions -------------------------
+
+    def park(self, gen: int, record: str) -> None:
+        """Ranks >= 1: leave ``record`` under ``parked/<gen>/<rank>`` in the
+        group's store, then wait for rank 0's :meth:`wake` of ``gen``,
+        polling the store.  A parked rank waits in no collective, so it
+        waits as long as rank 0 pleases; if rank 0's store goes away the
+        poll raises."""
+        self.store.set(f"parked/{gen}/{self.rank}", record)
+        key = f"wake/{gen}"
+        while not self.store.check([key]):
+            time.sleep(PARK_POLL_S)
+
+    def parked_records(self, gen: int, timeout_s: float,
+                       check: Callable[[], None] | None = None
+                       ) -> dict[int, str]:
+        """Rank 0: wait until every other rank has parked under ``gen``
+        (``check()``, when given, runs between looks and may raise) and
+        return their records."""
+        keys = [f"parked/{gen}/{r}" for r in range(1, self.world)]
+        deadline = time.monotonic() + timeout_s
+        while not self.store.check(keys):
+            if check is not None:
+                check()
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"dp ranks not parked after {timeout_s} s")
+            time.sleep(PARK_POLL_S / 5)
+        return {r: self.store.get(k).decode()
+                for r, k in enumerate(keys, start=1)}
+
+    def wake(self, gen: int) -> None:
+        """Rank 0: send the ranks parked under ``gen`` back to their op
+        loop."""
+        self.store.set(f"wake/{gen}", "1")
 
     def recv_op(self) -> dict:
         """Ranks >= 1: the next message of :meth:`send_ops`."""
@@ -277,7 +416,7 @@ def init_dp(world: int, rank: int, *, backend: str = "nccl", store=None,
              else _gloo(dp_store, rank, world, timeout))
     host_pg = _gloo(host_store, rank, world, timeout)
     return DpGroup(rank=rank, world=world, device=dev, dp=dp_pg,
-                   host=host_pg)
+                   host=host_pg, store=store)
 
 
 # -- rank processes ----------------------------------------------------------

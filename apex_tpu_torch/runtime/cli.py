@@ -71,9 +71,9 @@ qualify its identities, chunk ids and param topic; a tenant that names an
 ``APEX_POPULATION`` lineage adopts that lineage's env id and
 hyperparameters.  ``--mesh-dp N`` runs the learner-side roles' learner
 as N ranks of :mod:`apex_tpu_torch.parallel` (0: one per visible card,
-at least one); ``--rollout ondevice|fused`` and ``--replay-shards``
-with ``--mesh-dp`` above 1 exit with status 2 naming ROADMAP slice 14,
-and so does ``--checkpoint-dir`` (the trainer refuses it when built).
+at least one), with host actors, ``--rollout ondevice|fused``,
+``--replay-shards`` and ``--checkpoint-dir`` / ``--restore`` alike; the
+other ranks stop when the role's training ends.
 The Atari wrapper switches are not in the
 parser.  Beside ``--device`` the parser has two flags the JAX one lacks:
 ``--send-interval`` (env twin ``APEX_SEND_INTERVAL``), the actors' chunk
@@ -486,16 +486,6 @@ def _refuse(what: str) -> int:
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
-    if args.mesh_dp > 1 and args.role in ("learner", "apex"):
-        # refused here, before a socket binds or a card is touched; the
-        # trainers refuse the same paths (and checkpoints) when built
-        unported = [what for what, on in (
-            (f"--rollout {args.rollout}", args.rollout != "host"),
-            ("--replay-shards", args.replay_shards > 0)) if on]
-        if unported:
-            return _refuse(f"{' and '.join(unported)} with --mesh-dp "
-                           f"{args.mesh_dp}: not ported to the sharded "
-                           f"learner yet: ROADMAP slice 14")
     if args.restore and not args.checkpoint_dir:
         raise SystemExit("--restore requires --checkpoint-dir")
     if args.trace_dir:
@@ -752,9 +742,8 @@ def _run_driver(args: argparse.Namespace, cfg: ApexConfig) -> None:
                 f"--rollout {args.rollout} serves the dqn family only (got "
                 f"{args.family!r}); aql/r2d2 stay on the host pipeline")
         kw |= dict(train_ratio=args.train_ratio,
-                   min_train_ratio=args.min_train_ratio)
-        if args.rollout == "host":
-            kw["dp_backend"] = args.dp_backend
+                   min_train_ratio=args.min_train_ratio,
+                   dp_backend=args.dp_backend)
         if args.family == "aql":
             from apex_tpu_torch.training.aql import AQLApexTrainer as cls
         elif args.family == "r2d2":
@@ -774,9 +763,14 @@ def _run_driver(args: argparse.Namespace, cfg: ApexConfig) -> None:
         train_kw = dict(total_steps=args.total_steps,
                         max_seconds=args.max_seconds)
     trainer = cls(cfg, **kw)
-    if args.restore:
-        trainer.restore()
-    trainer.train(**train_kw)
+    try:
+        if args.restore:
+            trainer.restore()
+        trainer.train(**train_kw)
+    finally:
+        close = getattr(trainer, "close", None)
+        if close is not None:
+            close()            # the sharded plan's other ranks
 
 
 if __name__ == "__main__":

@@ -255,10 +255,11 @@ def run_learner(cfg: ApexConfig, n_peers: int, total_steps: int,
     iteration (the CLI sets it on SIGTERM, so the role exits 0).
 
     With ``learner.mesh_shape`` above 1 this process is rank 0 of the
-    sharded learner: its ``train()`` spawns the other ranks
-    (``dp_backend`` for the dp group).  The trainer refuses what the
-    sharded plan does not take yet (ROADMAP slice 14) and a batch the dp
-    degree does not divide, when it is built."""
+    sharded learner, on every rollout and with the replay shards alike:
+    its ``train()`` spawns the other ranks (``dp_backend`` for the dp
+    group), which stop when it returns (the trainer is closed).  The
+    trainer refuses a batch (or, fused, an env fleet) the dp degree does
+    not divide, when it is built."""
     if rollout not in ("host", "ondevice", "fused"):
         raise ValueError(f"unknown rollout {rollout!r}")
     _check_family(family)
@@ -303,8 +304,7 @@ def run_learner(cfg: ApexConfig, n_peers: int, total_steps: int,
             from apex_tpu_torch.training.aql import AQLApexTrainer as cls
         else:
             from apex_tpu_torch.training.r2d2 import R2D2ApexTrainer as cls
-        if rollout != "fused":
-            kw["dp_backend"] = dp_backend
+        kw["dp_backend"] = dp_backend
         trainer = cls(cfg, pool=pool, **kw)
         if stop_event is not None:
             trainer._stop_requested = stop_event
@@ -323,6 +323,7 @@ def run_learner(cfg: ApexConfig, n_peers: int, total_steps: int,
         return trainer.train(total_steps=total_steps,
                              max_seconds=max_seconds, log_every=log_every)
     finally:
+        trainer.close()          # the sharded plan's other ranks
         if client is not None:
             client.close()
 

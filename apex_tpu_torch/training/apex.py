@@ -81,17 +81,31 @@ The sharded plan (``apex.py:227-286``; ``learner.mesh_shape`` above 1):
 :mod:`apex_tpu_torch.parallel`.  This process is rank 0, the driver: it
 polls the pool through a :class:`~apex_tpu_torch.parallel.aggregate.
 ChunkAggregator` (one chunk per rank per group), publishes, logs and
-serves the ctl surface.  Ranks 1..N-1 are processes spawned by
+serves the ctl surface.  Ranks 1..N-1 are processes spawned by the first
 ``train()``, each with a trainer of the same class and config, its own
 replay shard and a :class:`~apex_tpu_torch.parallel.learner.NoActors`
 pool; they run :meth:`ConcurrentTrainer._follow`, taking each op (``fused``
-/ ``train`` / ``ingest`` / ``apply_hparams`` / ``restore`` / ``stop``)
-with its chunk, beta and uniforms from rank 0 over the host group and
-running the same body.  The ranks live for one ``train()`` call: a dead
-rank makes ``train()`` raise, and none outlives it.  ``dp_backend``
-(``"nccl"``, one card per rank, or ``"gloo"``, every rank on rank 0's
-card) is the dp group's.  Checkpoints need the replay shards gathered
-and are not written at dp > 1 (ROADMAP slice 14).
+/ ``train`` / ``ingest`` / ``batch`` / ``apply_hparams`` / ``restore`` /
+``gather`` / ``scatter`` / ``park`` / ``stop``) with its chunk, beta and
+uniforms from rank 0 over the host group and running the same body.
+The paths it takes: host actors, on-device rollouts (an
+:class:`~apex_tpu_torch.training.anakin.AnakinPool` acting on rank 0's
+card with rank 0's live weights, its chunks aggregated like host actors'),
+the replay service's batches (rank 0 pulls a batch and splits it into
+contiguous per-rank blocks, every rank updates on its block, the
+priorities come back in sample order and go to the owning shard), the
+fused plane (:class:`~apex_tpu_torch.ondevice.fused.FusedApexTrainer`)
+and checkpoints (the replay in JAX's stacked ``[dp, ...]`` layout with
+every rank's generator state, gathered from and scattered to the ranks
+over the host group).  The ranks live as long as the trainer: between
+``train()`` calls they wait parked on the group's store (in no
+collective), and :meth:`ConcurrentTrainer.close`, or a finalizer when the
+trainer goes away or the interpreter exits, stops them.  A dead rank
+makes the next op raise, and a trainer whose ranks were lost refuses to
+train on without their shards.  ``dp_backend`` (``"nccl"``, one card per
+rank, or ``"gloo"``, every rank on rank 0's card) is the dp group's.
+What has not run is NCCL over several cards: the same code with the
+backend swapped, run so far at world size 1 only (``chip_smoke.py`` 17c).
 
 Where the JAX trainer splits a PRNG key per dispatch, this one draws the
 PER sample's uniforms from a ``torch.Generator`` on the learner's device,
@@ -102,10 +116,12 @@ ingest_pipeline.UniformPrefetcher`).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import threading
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -125,7 +141,10 @@ from apex_tpu_torch.ops.gather import LAUNCH_COUNTS
 from apex_tpu_torch.ops.losses import make_optimizer
 from apex_tpu_torch.parallel.aggregate import ChunkAggregator, split_group
 from apex_tpu_torch.parallel.learner import (NoActors, ShardedLearner,
-                                             per_rank_batch)
+                                             gather_shards, per_rank_batch,
+                                             scatter_shards, shard_numbers,
+                                             split_batch, tile_shard,
+                                             unstack_shard)
 from apex_tpu_torch.parallel.mesh import (DEFAULT_TIMEOUT_S, RankProcesses,
                                           check_backend, init_dp,
                                           per_rank_seed, rank_device)
@@ -142,7 +161,8 @@ from apex_tpu_torch.serving.deploy import ServingStat
 from apex_tpu_torch.tenancy import scheduler as tenancy_sched
 from apex_tpu_torch.tenancy.scheduler import TenancyStat
 from apex_tpu_torch.training.checkpoint import (CheckpointableTrainer,
-                                                Checkpointer,
+                                                Checkpointer, _impose,
+                                                _set_numbers, load_raw,
                                                 run_policy_episodes)
 from apex_tpu_torch.replay_service.shard import batch_from_wire
 from apex_tpu_torch.training.ingest_pipeline import (IngestPipeline,
@@ -161,24 +181,26 @@ from apex_tpu_torch.utils.profiling import DispatchGapTimer
 DP_KEEPALIVE_S = 2.0
 #: seconds rank 0 waits for the other ranks to build their learners
 DP_START_TIMEOUT_S = 600.0
-_NO_SHARDED_CHECKPOINT = (
-    "checkpoints of a sharded learner (learner.mesh_shape above 1) need "
-    "its replay shards gathered into JAX's stacked layout: not ported "
-    "yet, ROADMAP slice 14")
 
 
 def _dp_follower_main(store, rank: int, world: int, cls, cfg: ApexConfig,
-                      backend: str, device: str, timeout_s: float) -> None:
+                      backend: str, device: str, timeout_s: float,
+                      kwargs: dict, cudnn: tuple[bool, bool]) -> None:
     """A rank >= 1 of the sharded plan (spawned by
     :meth:`ConcurrentTrainer._start_ranks`): a trainer of rank 0's class
-    and config on this rank's device with no actors, joined to the dp
-    group, following rank 0's ops until ``stop``; its counters go to the
-    store as ``stats/<rank>``."""
+    and config (``kwargs``: rank 0's other constructor arguments, through
+    :meth:`ConcurrentTrainer._dp_follower_kwargs`) on this rank's device
+    with no actors and rank 0's cuDNN ``(deterministic, benchmark)``
+    flags, joined to the dp group, following rank 0's ops until ``stop``;
+    its counters go to the store as ``stats/<rank>``."""
+    (torch.backends.cudnn.deterministic,
+     torch.backends.cudnn.benchmark) = cudnn
     one = cfg.replace(learner=dataclasses.replace(cfg.learner,
                                                   mesh_shape=(1,)))
     trainer = cls(one, pool=NoActors(),
                   device=rank_device(rank, backend, device),
-                  respawn_workers=False)
+                  respawn_workers=False,
+                  **cls._dp_follower_kwargs(kwargs, rank, world))
     store.set(f"ready/{rank}", "1")
     group = init_dp(world, rank, backend=backend, store=store,
                     timeout=timeout_s, device=device)
@@ -256,16 +278,26 @@ class ConcurrentTrainer(CheckpointableTrainer):
     hparams_live: dict | None = None
     # the sharded plan (learner.mesh_shape above 1): the dp degree and
     # backend; this rank's group and ShardedLearner steps while the ranks
-    # run; rank 0's handle on the other ranks' processes during train();
-    # the per-rank records of the last sharded train()
+    # live; rank 0's handle on the other ranks' processes (from the first
+    # train() to close()) and its finalizer; the generation the ranks are
+    # parked under between sessions (None while they follow ops); why the
+    # ranks are gone when they are (their shards with them); a restored
+    # checkpoint's stacked shards waiting for the ranks to start; the
+    # other ranks' constructor arguments; the per-rank records of the
+    # last session
     n_dp = 1
     dp_backend = "nccl"
     _dp = None
     _sharded = None
     _ranks = None
+    _ranks_finalizer = None
     _uniforms: UniformPrefetcher | None = None
-    _dp_trained = False
     _dp_last_op = 0.0
+    _dp_gen = 0
+    _dp_parked: int | None = None
+    _dp_gone: str | None = None
+    _dp_pending: dict | None = None
+    _dp_kwargs: dict | None = None
     dp_rank_stats: dict | None = None
 
     def _init_loop(self, train_ratio, min_train_ratio, publish_min_seconds,
@@ -360,19 +392,13 @@ class ConcurrentTrainer(CheckpointableTrainer):
         :class:`~apex_tpu_torch.parallel.aggregate.ChunkAggregator`, set up
         the per-rank uniform generators and check what can be checked
         before ``train()``: the backend and the cards it needs, the
-        batch's divisibility by dp, no checkpoint directory.  Each
-        subclass calls it once its core, pool and loop are built."""
+        batch's divisibility by dp.  Each subclass calls it once its core,
+        pool and loop are built."""
         n = int(np.prod(self.cfg.learner.mesh_shape))
         if n <= 1:
             return
-        if getattr(self.pool, "accepts_device_params", False):
-            raise NotImplementedError(
-                "rollouts on the card (AnakinPool) with a sharded learner: "
-                "not ported yet, ROADMAP slice 14")
         check_backend(n, dp_backend, self.device)
         per_rank = per_rank_batch(self.core.batch_size, n)
-        if self.checkpointer is not None:
-            raise NotImplementedError(_NO_SHARDED_CHECKPOINT)
         self.n_dp, self.dp_backend = n, dp_backend
         self.scan_steps = 1        # no multi-step dispatch on the dp plan
         self.pool = ChunkAggregator(self.pool, n)
@@ -381,53 +407,156 @@ class ConcurrentTrainer(CheckpointableTrainer):
             [torch.Generator().manual_seed(per_rank_seed(seed, r))
              for r in range(n)], per_rank)
 
-    def _check_sharded_train(self) -> None:
-        if self.replay_client is not None:
-            raise NotImplementedError(
-                "the replay service's batches on a sharded learner "
-                "(learner.mesh_shape above 1): not ported yet, ROADMAP "
-                "slice 14")
-        if self._dp_trained:
-            raise RuntimeError(
-                "a sharded trainer trains once: its other ranks' replay "
-                "shards end with the train() call that started them; "
-                "build a new trainer (ROADMAP slice 14)")
+    @classmethod
+    def _dp_follower_kwargs(cls, kwargs: dict, rank: int,
+                            world: int) -> dict:
+        """The constructor arguments of rank ``rank``'s trainer, from rank
+        0's ``kwargs`` (``_dp_kwargs``)."""
+        return dict(kwargs)
 
     def _start_ranks(self) -> None:
         """Spawn ranks 1..N-1, wait until each has built its learner, join
-        the groups as rank 0 and hand every rank rank 0's train state.
-        The caller stops them if this raises."""
+        the groups as rank 0, hand every rank rank 0's train state and
+        counters and, after a restore, each rank its shard.  The caller
+        stops them if this raises."""
         ranks = self._ranks = RankProcesses(
             self.n_dp, _dp_follower_main,
             (type(self), self.cfg, self.dp_backend, str(self.device),
-             DEFAULT_TIMEOUT_S))
+             DEFAULT_TIMEOUT_S, dict(self._dp_kwargs or {}),
+             (torch.backends.cudnn.deterministic,
+              torch.backends.cudnn.benchmark)))
+        # the ranks go with the trainer, or at the latest with the
+        # interpreter
+        self._ranks_finalizer = weakref.finalize(self, ranks.stop, 0.0)
         ranks.wait_ready(DP_START_TIMEOUT_S)
         group = init_dp(self.n_dp, 0, backend=self.dp_backend,
                         store=ranks.store, device=self.device)
         self._join_dp(group)
-        self._dp_sync()
+        self._dp_sync(counters=True)
+        if self._dp_pending is not None:
+            self._dp_scatter_pending()
 
     def _stop_ranks(self, graceful: bool) -> None:
         """Stop the other ranks (a ``stop`` op first when ``graceful`` and
         all are alive), collect their records into ``dp_rank_stats`` and
-        leave no rank process behind."""
+        leave no rank process behind.  Their shards go with them."""
         ranks = self._ranks
         if ranks is None:
             return
         try:
-            if graceful and self._dp is not None and not ranks.failures():
+            if (graceful and self._dp is not None and not ranks.failures()
+                    and self._dp_parked is None):
                 self._dp_send("stop")
         finally:
             ranks.stop(timeout_s=30.0 if graceful else 2.0)
+            if self._ranks_finalizer is not None:
+                self._ranks_finalizer.detach()
             own = self._dp_stats() if self._dp is not None else {}
             self.dp_rank_stats = {0: own, **ranks.rank_stats()}
             if self._dp is not None:
                 self._dp.close()
             self._ranks = self._dp = self._sharded = None
+            self._ranks_finalizer = None
+            self._dp_parked = None
+            self._dp_gone = ("its other ranks were stopped by close()"
+                             if graceful else "a rank failed or train() "
+                             "raised, and the other ranks were stopped")
+
+    def _dp_open(self) -> None:
+        """Rank 0: the other ranks in their op loop, spawned by the first
+        call and woken from their park by the later ones."""
+        if self._dp_gone is not None:
+            raise RuntimeError(
+                f"this sharded trainer has lost its other ranks' replay "
+                f"shards ({self._dp_gone}); restore a checkpoint into a new "
+                f"trainer")
+        if self._ranks is None and self._dp is None:
+            try:
+                self._start_ranks()
+            except BaseException:
+                self._stop_ranks(graceful=False)
+                self._dp_gone = None        # no rank held data yet
+                raise
+        elif self._dp_parked is not None:
+            self._dp.wake(self._dp_parked)
+            self._dp_parked = None
+            self._dp_last_op = time.monotonic()
+
+    def _dp_end(self, graceful: bool) -> None:
+        """Rank 0, at the end of a session: park the other ranks (their
+        records into ``dp_rank_stats``), or stop them after a failure."""
+        ranks = self._ranks
+        if ranks is None:
+            return
+        if graceful and not ranks.failures():
+            try:
+                self._dp_park()
+                return
+            except BaseException:
+                self._stop_ranks(graceful=False)
+                raise
+        self._stop_ranks(graceful=False)
+
+    def _start_pool(self) -> None:
+        """``pool.start()``, which a socket pool's startup barrier can hold
+        for as long as its timeout: the other ranks wait for it parked, in
+        no collective."""
+        if self._ranks is None or self._dp_parked is not None:
+            self.pool.start()
+            return
+        self._dp_park()
+        self.pool.start()
+        self._dp_open()
+
+    def _dp_park(self) -> None:
+        """Send the other ranks to wait on the store until the next session
+        (no collective, so no timeout), and collect the records they leave
+        there."""
+        self._dp_gen += 1
+        gen = self._dp_gen
+        self._dp_send("park", gen=gen)
+        records = self._dp.parked_records(gen, DEFAULT_TIMEOUT_S,
+                                          check=self._ranks.check)
+        self.dp_rank_stats = {0: self._dp_stats(),
+                              **{r: json.loads(v)
+                                 for r, v in records.items()}}
+        self._dp_parked = gen
+
+    @contextlib.contextmanager
+    def _dp_session(self):
+        """The other ranks listening for the body's ops: a no-op at dp 1,
+        inside ``train()`` and before the ranks start; between ``train()``
+        calls, wake them and park them again after."""
+        if (self.n_dp == 1 or self._ranks is None
+                or self._dp_parked is None):
+            yield
+            return
+        self._dp_open()
+        done = False
+        try:
+            yield
+            done = True
+        finally:
+            self._dp_end(graceful=done)
+
+    def close(self) -> None:
+        """Stop the sharded plan's other ranks, which live from the first
+        ``train()`` on, and collect their records into ``dp_rank_stats``.
+        Their replay shards go with them: the trainer trains no more (save
+        a checkpoint first to keep them).  A no-op at dp 1 and when the
+        ranks never started."""
+        ranks = self._ranks
+        if ranks is None:
+            return
+        if self._dp_parked is not None and not ranks.failures():
+            self._dp.wake(self._dp_parked)
+            self._dp_parked = None
+        self._stop_ranks(graceful=True)
 
     def _join_dp(self, group) -> None:
         """Take ``group`` as this rank's; ranks >= 1 reseed the learner's
-        generator (AQL's NoisyNet draws) from the run's seed and rank."""
+        generator (AQL's NoisyNet draws, the fused plane's uniforms) from
+        the run's seed and rank."""
         self._dp = group
         if group.rank != 0:
             self.generator.manual_seed(
@@ -440,10 +569,14 @@ class ConcurrentTrainer(CheckpointableTrainer):
         self._sl_fused = sl.make_fused_step()
         self._sl_train = sl.make_train_step()
         self._sl_ingest = sl.make_ingest()
+        self._sl_batch = sl.make_batch_train()
 
     def _dp_send(self, op: str, per_rank=None, **fields) -> None:
         """Rank 0: one op to every other rank (``per_rank[r - 1]`` merged
         into rank r's message)."""
+        if self._dp_parked is not None:
+            raise RuntimeError(f"dp op {op!r} while the other ranks are "
+                               f"parked")
         msgs = [None]
         for r in range(1, self.n_dp):
             msg = {"op": op, **fields}
@@ -453,17 +586,17 @@ class ConcurrentTrainer(CheckpointableTrainer):
         self._dp.send_ops(msgs)
         self._dp_last_op = time.monotonic()
 
-    def _dp_dispatch(self, op: str, payload=None, prios=None, remote=()):
-        """Rank 0's half of one sharded dispatch: the op, beta and each
-        rank's uniforms and chunk to the other ranks, then the same body
-        here.  Returns the step's metrics (meaned over the ranks) or
-        None."""
+    def _dp_dispatch(self, op: str, payload=None, prios=None, remote=(),
+                     n_trans: int = 0):
+        """Rank 0's half of one sharded dispatch: the op, beta, the
+        group's transition count and each rank's uniforms and chunk to the
+        other ranks, then the same body here.  Returns the step's metrics
+        (meaned over the ranks) or None."""
         if self._dp is None:
-            raise RuntimeError("the dp ranks run inside train()")
-        self._dp_trained = True     # the other ranks' shards take data
+            raise RuntimeError("the dp ranks start with the first train()")
         beta = self._beta()
         offsets = self._uniforms.take() if op != "ingest" else None
-        self._dp_send(op, beta=beta, per_rank=[
+        self._dp_send(op, beta=beta, n_trans=int(n_trans), per_rank=[
             {"offsets": None if offsets is None else offsets[r],
              "chunk": remote[r - 1] if remote else None}
             for r in range(1, self.n_dp)])
@@ -485,37 +618,77 @@ class ConcurrentTrainer(CheckpointableTrainer):
                                             prios)
         return None
 
-    def _dp_sync(self) -> None:
-        """Rank 0: every rank takes this rank's train state."""
+    def _dp_sync(self, counters: bool = False) -> None:
+        """Rank 0: every rank takes this rank's train state, and with
+        ``counters`` its ingest and step counts (a start or a restore)."""
         numbers = self._sharded.train_state_numbers(self.train_state)
-        self._dp_send("restore", numbers=numbers)
+        fields = {"numbers": numbers}
+        if counters:
+            fields["counters"] = {"ingested": self.ingested,
+                                  "steps": self.steps_rate.total}
+        self._dp_send("restore", **fields)
         self._sharded.sync_train_state_(self.train_state)
 
+    def _apply_dp_counters(self, counters: dict) -> None:
+        """A rank >= 1 takes rank 0's counters (:meth:`_dp_sync`)."""
+        self.ingested = int(counters["ingested"])
+        self.steps_rate.total = int(counters["steps"])
+
     def _follow(self) -> None:
-        """A rank >= 1's loop: rank 0's ops until ``stop``."""
+        """A rank >= 1's loop: rank 0's ops until ``stop``; a ``park`` op
+        waits on the store until rank 0 wakes it."""
         while True:
             msg = self._dp.recv_op()
             op = msg["op"]
             if op == "stop":
                 return
-            if op == "noop":
+            if op == "park":
+                self._dp.park(msg["gen"], json.dumps(self._dp_stats()))
                 continue
-            if op == "restore":
-                self._sharded.sync_train_state_(self.train_state,
-                                                msg["numbers"])
-            elif op == "apply_hparams":
-                self.apply_hparams(msg["hparams"])
-            else:
-                chunk = msg.get("chunk")
-                if isinstance(chunk, bytes):
-                    chunk = wire.restricted_loads(chunk)
-                payload, prios = chunk if chunk is not None else (None,
-                                                                  None)
-                self._dp_body(op, payload, prios, msg.get("offsets"),
-                              msg["beta"])
-                self.dispatches[op] += 1
-                if op != "ingest":
-                    self.steps_rate.tick()
+            self._follow_op(msg)
+
+    def _follow_op(self, msg: dict) -> None:
+        """One op of rank 0's on this rank (:meth:`_follow`)."""
+        op = msg["op"]
+        if op == "noop":
+            return
+        if op == "restore":
+            self._sharded.sync_train_state_(self.train_state,
+                                            msg["numbers"])
+            if "counters" in msg:
+                self._apply_dp_counters(msg["counters"])
+            return
+        if op == "apply_hparams":
+            self.apply_hparams(msg["hparams"])
+            return
+        if op == "gather":
+            gather_shards(self._dp, self.replay_state,
+                          (self.generator.get_state(),))
+            return
+        if op == "scatter":
+            gen = torch.empty_like(self.generator.get_state())
+            scatter_shards(self._dp, self.replay_state, extra=(gen,),
+                           numbers=msg["numbers"])
+            self.generator.set_state(gen)
+            return
+        chunk = msg.get("chunk")
+        if isinstance(chunk, bytes):
+            chunk = wire.restricted_loads(chunk)
+        if op == "batch":
+            payload, weights = chunk
+            dev = self.device
+            self.train_state, _, _ = self._sl_batch(
+                self.train_state,
+                batch_from_wire({k: torch.as_tensor(v).to(dev)
+                                 for k, v in payload.items()}), weights)
+            self.service_steps += 1
+            self.steps_rate.tick()
+            return
+        payload, prios = chunk if chunk is not None else (None, None)
+        self._dp_body(op, payload, prios, msg.get("offsets"), msg["beta"])
+        self.dispatches[op] += 1
+        if op != "ingest":
+            self.steps_rate.tick()
 
     def _dp_stats(self) -> dict:
         """This rank's record: its gather launches, steps, dispatches,
@@ -526,15 +699,105 @@ class ConcurrentTrainer(CheckpointableTrainer):
         return {"rank": self._dp.rank,
                 "gather_launches": dict(LAUNCH_COUNTS),
                 "steps": self.steps_rate.total,
+                "service_steps": self.service_steps,
                 "dispatches": dict(self.dispatches),
                 "replay_size": int(self.replay_state.size),
                 "collectives": dict(self._dp.stats),
                 "peak_bytes": int(peak)}
 
+    # -- checkpoints of the sharded plan ------------------------------------
+
+    def _dp_scatter_pending(self) -> None:
+        """Rank 0: a restored checkpoint's rows 1..N-1 (shards and
+        generators) to their ranks."""
+        pending = self._dp_pending
+        stacked = pending["replay"]
+        self._dp_send("scatter", per_rank=[
+            {"numbers": shard_numbers(stacked, self.replay_state, r)}
+            for r in range(1, self.n_dp)])
+        scatter_shards(self._dp, self.replay_state, stacked,
+                       extra=(self.generator.get_state(),),
+                       extra_stacked=(pending["generators"],))
+        self._dp_pending = None
+
+    def _sharded_bundle(self) -> dict:
+        """The sharded learner's checkpoint: the train state once (it is
+        replicated), the replay in JAX's stacked layout (every field
+        ``[dp, ...]`` in rank order, the host numbers ``int64[dp]``), rank
+        0's generator as ``generator`` and under ``dp`` every rank's
+        generator state and the per-rank uniforms' generators and queue.
+        The ranks' shards stream to the host here (no rank's replay is
+        skipped: a trainer that lost them raises)."""
+        base = self._bundle()
+        if self._dp_gone is not None:
+            raise RuntimeError(
+                f"no checkpoint of a sharded trainer without its other "
+                f"ranks' replay shards ({self._dp_gone})")
+        own = self.generator.get_state()
+        if self._ranks is not None or self._dp is not None:
+            with self._dp_session():
+                self._dp_send("gather")
+                stacked, (gens,) = gather_shards(self._dp, self.replay_state,
+                                                 (own,))
+        elif self._dp_pending is not None:
+            # restored, ranks not started: the file's rows are the shards
+            stacked = self._dp_pending["replay"]
+            gens = self._dp_pending["generators"].clone()
+            gens[0] = own
+        else:
+            # never started: every rank holds a fresh shard and a
+            # generator seeded from its rank
+            stacked = tile_shard(self.replay_state, self.n_dp)
+            seed = self.cfg.env.seed + 1
+            gens = torch.stack([own] + [
+                torch.Generator(device=self.device).manual_seed(
+                    per_rank_seed(seed, r)).get_state()
+                for r in range(1, self.n_dp)])
+        return dict(train_state=base["train_state"], replay_state=stacked,
+                    generator=own,
+                    dp=dict(generators=gens, **self._uniforms.state()))
+
+    def save_checkpoint(self) -> str:
+        if self.n_dp == 1:
+            return super().save_checkpoint()
+        if self.checkpointer is None:
+            raise ValueError("no checkpoint directory configured "
+                             "(pass checkpoint_dir)")
+        return self.checkpointer.save(self.steps_rate.total,
+                                      self._sharded_bundle(),
+                                      self._meta() | {"dp": self.n_dp})
+
     def restore(self, path: str | None = None):
-        if self.n_dp > 1:
-            raise NotImplementedError(_NO_SHARDED_CHECKPOINT)
-        return super().restore(path)
+        """At dp 1, :meth:`CheckpointableTrainer.restore`.  At dp > 1 a
+        checkpoint of the same dp degree: the train state and rank 0's row
+        of the stacked replay and generators here; the other rows go to
+        their ranks when they start (or at once, when they live).  The
+        file is read memory-mapped, so the other ranks' rows are never
+        held in memory twice."""
+        if self.n_dp == 1:
+            return super().restore(path)
+        path = self._checkpoint_path(path)
+        raw, meta = load_raw(path, mmap=True)
+        saved_dp = int(meta.get("dp", 1))
+        if saved_dp != self.n_dp or "dp" not in raw:
+            raise ValueError(f"checkpoint {path} holds a learner of dp "
+                             f"{saved_dp}; this trainer's is {self.n_dp}")
+        ts = self.train_state
+        saved = _impose(self._bundle()["train_state"], raw["train_state"],
+                        "train_state")
+        _set_numbers(ts.opt_state, saved["opt_state"])
+        ts.step = saved["step"]
+        unstack_shard(self.replay_state, raw["replay_state"], 0)
+        self.generator.set_state(raw["dp"]["generators"][0].clone())
+        self._uniforms.set_state(raw["dp"])
+        self._apply_counters(meta)
+        self._dp_pending = {"replay": raw["replay_state"],
+                            "generators": raw["dp"]["generators"]}
+        if self._dp is not None:
+            with self._dp_session():
+                self._dp_sync(counters=True)
+                self._dp_scatter_pending()
+        return self
 
     # -- main loop ---------------------------------------------------------
 
@@ -549,8 +812,6 @@ class ConcurrentTrainer(CheckpointableTrainer):
         cfg = self.cfg
         pool = self.pool
         client = self.replay_client
-        if self.n_dp > 1:
-            self._check_sharded_train()
         target_steps = self.steps_rate.total + total_steps
         set_process_label("learner")
         ring = get_ring()
@@ -576,11 +837,11 @@ class ConcurrentTrainer(CheckpointableTrainer):
             if self.n_dp > 1:
                 # the ranks first: a rank that cannot start fails train()
                 # before any actor is spawned
-                self._start_ranks()
-            pool.start()
+                self._dp_open()
+            self._start_pool()
         except BaseException:
             self._pipeline = None      # never started; publish serially
-            self._stop_ranks(graceful=False)
+            self._dp_end(graceful=False)
             raise
         # a socket pool stamps its publishes with this life's epoch, so a
         # parked actor tells a restarted learner from a stalled one
@@ -753,7 +1014,9 @@ class ConcurrentTrainer(CheckpointableTrainer):
                 self._fleet_status = None
             self._dump_fleet_summary()      # the final registry view
             pool.cleanup()
-            self._stop_ranks(graceful=finished)
+            # the other ranks park until the next session (or stop, after
+            # a failure)
+            self._dp_end(graceful=finished)
             stop = self._stop_requested
             if stop is not None:
                 stop.clear()       # a request is honoured once, at exit
@@ -1216,7 +1479,8 @@ class ConcurrentTrainer(CheckpointableTrainer):
         ts.step = saved["step"]
         self.learner_epoch += 1
         if self._dp is not None:
-            self._dp_sync()           # every rank takes the donor's state
+            with self._dp_session():
+                self._dp_sync()       # every rank takes the donor's state
         return meta
 
     def apply_hparams(self, h: dict) -> dict:
@@ -1250,14 +1514,17 @@ class ConcurrentTrainer(CheckpointableTrainer):
             self.hparams_live = {**(self.hparams_live or {}), **recorded}
         if self._dp is not None and self._dp.rank == 0:
             # every rank rebuilds its optimizer (apex.py:1118-1122)
-            self._dp_send("apply_hparams", hparams=dict(h))
+            with self._dp_session():
+                self._dp_send("apply_hparams", hparams=dict(h))
         return applied
 
     # -- dispatch ----------------------------------------------------------
 
-    def _offsets(self, k: int | None = None) -> torch.Tensor:
-        """The PER sample's per-stratum uniforms, ``[B]`` or ``[k, B]``."""
-        b = self.core.batch_size
+    def _offsets(self, k: int | None = None,
+                 b: int | None = None) -> torch.Tensor:
+        """The PER sample's per-stratum uniforms, ``[b]`` or ``[k, b]``
+        (``b`` defaults to the batch size)."""
+        b = self.core.batch_size if b is None else b
         if k is None:
             return stratified_offsets(b, self.generator, self.device)
         return torch.rand((k, b), generator=self.generator,
@@ -1295,7 +1562,7 @@ class ConcurrentTrainer(CheckpointableTrainer):
                 parts = split_group(payload, prios, self.n_dp)
                 (payload, prios), remote = parts[0], parts[1:]
             metrics = self._dp_dispatch("fused" if train else "ingest",
-                                        payload, prios, remote)
+                                        payload, prios, remote, n_trans)
             self.dispatches["fused" if train else "ingest"] += 1
             if train:
                 self.steps_rate.tick()
@@ -1358,9 +1625,10 @@ class ConcurrentTrainer(CheckpointableTrainer):
         """Chunk messages brought by the caller, one at a time: the
         single-chunk half of the serial drain, under the current warm-up
         and replay-ratio state.  Returns the last step's metrics or None."""
-        return self._drain_serial(msgs, 1,
-                                  self.ingested >= self.cfg.replay.warmup,
-                                  self._budget())
+        with self._dp_session():
+            return self._drain_serial(
+                msgs, 1, self.ingested >= self.cfg.replay.warmup,
+                self._budget())
 
     # -- the ingest pipeline -----------------------------------------------
 
@@ -1440,29 +1708,44 @@ class ConcurrentTrainer(CheckpointableTrainer):
 
     def _host_batch_slot(self, item: dict) -> StagedSlot:
         """The serial path's twin of the pipeline's batch slot: the pulled
-        batch and its IS weights copied to the device here."""
+        batch and its IS weights copied to the device here (at dp > 1 rank
+        0's block of them, the other ranks' blocks pickled for the host
+        group, :func:`~apex_tpu_torch.parallel.learner.split_batch`)."""
         dev = self.device
         spans = obs_spans.spans_of(item)
         obs_spans.stamp_spans(spans, "stage")
+        batch, weights, remote = item["batch"], item["weights"], ()
+        if self.n_dp > 1:
+            blocks = split_batch(batch, weights, self.n_dp)
+            (batch, weights), remote = blocks[0], tuple(
+                wire.dumps(b) for b in blocks[1:])
         return StagedSlot(
             kind="batch",
             payload={k: torch.as_tensor(v).to(dev)
-                     for k, v in item["batch"].items()},
-            prios=torch.as_tensor(np.asarray(item["weights"], np.float32))
-            .to(dev),
+                     for k, v in batch.items()},
+            prios=torch.as_tensor(np.asarray(weights, np.float32)).to(dev),
             n_trans=0, planned_steps=1, idx=np.asarray(item["idx"]),
             shard=int(item.get("shard", 0)), seq=int(item["seq"]),
-            spans=tuple(spans))
+            spans=tuple(spans), remote=remote)
 
     def _consume_batch_slot(self, slot: StagedSlot) -> dict:
         """Train on one shard-sampled batch (the update half of the fused
         step) and route its priorities to the shard: through the staging
         thread when the pipeline runs, which makes the device-to-host
-        copy off this loop, else inline."""
+        copy off this loop, else inline.  At dp > 1 each other rank gets
+        its block of the batch under a ``batch`` op, every rank updates
+        with the gradients meaned over the group, and the priorities come
+        back ``[batch]`` in sample order (``apex.py:1221-1273``)."""
         gap = self._dispatch_gap
         gap.about_to_dispatch()
-        self.train_state, prios, metrics = self.core.update_from_batch(
-            self.train_state, batch_from_wire(slot.payload), slot.prios)
+        if self.n_dp > 1:
+            self._dp_send("batch", per_rank=[{"chunk": blob}
+                                             for blob in slot.remote])
+            self.train_state, prios, metrics = self._sl_batch(
+                self.train_state, batch_from_wire(slot.payload), slot.prios)
+        else:
+            self.train_state, prios, metrics = self.core.update_from_batch(
+                self.train_state, batch_from_wire(slot.payload), slot.prios)
         gap.dispatch_returned()
         self.steps_rate.tick()
         self.service_steps += 1

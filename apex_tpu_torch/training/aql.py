@@ -29,7 +29,10 @@ uniforms and the NoisyNet and acting draws come from an
 ``learner.mesh_shape`` above 1, :class:`AQLApexTrainer` runs the sharded
 plan of :class:`~apex_tpu_torch.training.apex.ConcurrentTrainer`, each
 rank drawing its NoisyNet noise from a generator of its own
-(:func:`~apex_tpu_torch.parallel.mesh.per_rank_seed`).  The learner role
+(:func:`~apex_tpu_torch.parallel.mesh.per_rank_seed`, the role of JAX's
+``fold_in(key, axis_index("dp"))``), whose state a checkpoint keeps for
+every rank beside the shards in JAX's stacked layout; the ranks live
+across ``train()`` calls until ``close()``.  The learner role
 builds :class:`AQLApexTrainer` over sockets
 (:func:`apex_tpu_torch.runtime.roles.run_learner`); remote policy serves
 the DQN family only, as in the reference.

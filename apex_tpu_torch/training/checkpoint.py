@@ -11,6 +11,14 @@ bit-exactly:
     generator: the state of the learner's torch.Generator
     meta: the config, the model spec and the host counters, as JSON
 
+A sharded learner's (``learner.mesh_shape`` above 1) holds the train
+state once (it is replicated), the replay in JAX's stacked layout (every
+field with a leading ``[dp]`` axis in rank order, the host cursors as
+``int64[dp]``), rank 0's generator, and under ``dp`` every rank's
+generator state and the per-rank PER uniforms' generators and queue
+(:meth:`apex_tpu_torch.training.apex.ConcurrentTrainer.save_checkpoint`);
+its meta carries ``dp``.
+
 Format: one ``torch.save`` file of a dict of tensors, ints and lists plus
 the JSON ``meta`` string, written to ``<path>.tmp`` and moved into place
 with ``os.replace``, so a crash mid-save never damages the newest
@@ -67,12 +75,15 @@ def save_bundle(path: str, bundle: dict, meta: dict | None = None) -> str:
     return path
 
 
-def load_raw(path: str) -> tuple[dict, dict]:
+def load_raw(path: str, mmap: bool = False) -> tuple[dict, dict]:
     """Read a checkpoint as ``(state, meta)``: the nested state of CPU
     tensors and ints, and the metadata dict.  Only tensors and containers
     unpickle; a file naming any other object raises
-    ``pickle.UnpicklingError``."""
-    payload = torch.load(path, map_location="cpu", weights_only=True)
+    ``pickle.UnpicklingError``.  ``mmap``: the tensors map the file
+    instead of being read into memory (a sharded learner's stacked
+    replay, read one rank's rows at a time)."""
+    payload = torch.load(path, map_location="cpu", weights_only=True,
+                         mmap=mmap)
     return payload["state"], json.loads(payload["meta"])
 
 
@@ -209,20 +220,25 @@ class CheckpointableTrainer:
         return self.checkpointer.save(self.steps_rate.total, self._bundle(),
                                       self._meta())
 
+    def _checkpoint_path(self, path: str | None) -> str:
+        """``path``, or the newest checkpoint of ``checkpointer``."""
+        if path is not None:
+            return path
+        if self.checkpointer is None:
+            raise ValueError("no checkpoint directory configured "
+                             "(pass checkpoint_dir)")
+        path = self.checkpointer.latest_path()
+        if path is None:
+            raise FileNotFoundError(
+                f"no checkpoint found in {self.checkpointer.directory!r}")
+        return path
+
     def restore(self, path: str | None = None):
         """Restore the whole learner (weights, optimizer, replay,
         generator) and the host counters onto this trainer's device; the
         learner continues bit-exactly.  ``path`` defaults to the newest
         checkpoint of ``checkpointer``."""
-        if path is None:
-            if self.checkpointer is None:
-                raise ValueError("no checkpoint directory configured "
-                                 "(pass checkpoint_dir)")
-            path = self.checkpointer.latest_path()
-            if path is None:
-                raise FileNotFoundError(
-                    f"no checkpoint found in "
-                    f"{self.checkpointer.directory!r}")
+        path = self._checkpoint_path(path)
         bundle, meta = restore_bundle(path, self._bundle())
         saved_ts = bundle["train_state"]
         _set_numbers(self.train_state.opt_state, saved_ts["opt_state"])

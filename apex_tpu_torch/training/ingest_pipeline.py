@@ -77,7 +77,14 @@ leading dp axis, and the pipeline stages group-granular slots:
 * the per-rank PER uniforms are drawn ahead by a
   :class:`UniformPrefetcher` (the role of JAX's ``KeyPrefetcher``: one
   generator per rank, drawn in dispatch order, refilled on this thread,
-  so pipelined and serial runs consume the same draws).
+  so pipelined and serial runs consume the same draws; a checkpoint
+  keeps its generators and queue);
+* a replay-service ``"batch"`` slot splits into contiguous per-rank
+  blocks of ``batch / n_dp`` rows
+  (:func:`~apex_tpu_torch.parallel.learner.split_batch`): rank 0's block
+  is staged, the others' are pickled into ``StagedSlot.remote`` for the
+  trainer's ``batch`` op, and the write-back takes the priorities of the
+  whole batch, gathered in sample order.
 """
 
 from __future__ import annotations
@@ -97,6 +104,7 @@ from apex_tpu_torch.obs.trace import get_ring
 from apex_tpu_torch.ops.tree import stratified_offsets
 from apex_tpu_torch.parallel.aggregate import (split_group, tree_index,
                                                tree_stack)
+from apex_tpu_torch.parallel.learner import split_batch
 from apex_tpu_torch.runtime import wire
 
 #: payload keys that identify a self-contained frame chunk
@@ -255,6 +263,35 @@ class UniformPrefetcher:
             if not self._queue:
                 self._gen()
             return self._queue.popleft()
+
+    def state(self) -> dict:
+        """A checkpoint's record, taken under the lock: each generator's
+        state (``uniform_generators``, ``u8[dp, n]``) and the draws queued
+        but not taken (``uniform_queue``, ``f32[q, dp, per_rank]``), so a
+        restored prefetcher hands out the same sequence."""
+        with self._lock:
+            queue = (np.stack([np.stack(e) for e in self._queue])
+                     if self._queue else np.zeros(
+                         (0, len(self.generators), self.per_rank),
+                         np.float32))
+            return {"uniform_generators": torch.stack(
+                        [g.get_state() for g in self.generators]),
+                    "uniform_queue": torch.from_numpy(queue)}
+
+    def set_state(self, state: dict) -> None:
+        """Take a :meth:`state` record."""
+        gens, queue = state["uniform_generators"], state["uniform_queue"]
+        if (tuple(gens.shape[:1]) != (len(self.generators),)
+                or tuple(queue.shape[1:]) != (len(self.generators),
+                                              self.per_rank)):
+            raise ValueError(
+                f"uniforms of {tuple(gens.shape)} / {tuple(queue.shape)} "
+                f"for {len(self.generators)} ranks of {self.per_rank}")
+        with self._lock:
+            for g, st in zip(self.generators, gens):
+                g.set_state(st.clone())
+            self._queue = deque([list(row) for row in
+                                 np.array(queue, np.float32)])
 
 
 @dataclass
@@ -647,8 +684,10 @@ class IngestPipeline:
         with tensors for the device; the chunk scalars become ints.  A
         sharded group is split by rank first: rank 0's part is staged, the
         others' are pickled into ``slot.remote``."""
-        if self.n_dp > 1 and slot.kind != "batch":
-            parts = split_group(slot.payload, slot.prios, self.n_dp)
+        if self.n_dp > 1:
+            parts = (split_batch(slot.payload, slot.prios, self.n_dp)
+                     if slot.kind == "batch"
+                     else split_group(slot.payload, slot.prios, self.n_dp))
             slot.payload, slot.prios = parts[0]
             slot.remote = tuple(wire.dumps(p) for p in parts[1:])
         scan = slot.kind == "scan"

@@ -23,7 +23,9 @@ As in the other drivers, PRNG keys become ``torch.Generator`` draws on the
 learner's device, and entry points default to ``"cuda"``.  With
 ``learner.mesh_shape`` above 1, :class:`R2D2ApexTrainer` runs the sharded
 plan of :class:`~apex_tpu_torch.training.apex.ConcurrentTrainer` (one
-sequence-replay shard per rank, :mod:`apex_tpu_torch.parallel`).  The learner
+sequence-replay shard per rank, :mod:`apex_tpu_torch.parallel`), its
+checkpoints holding the shards in JAX's stacked layout and its ranks
+living across ``train()`` calls until ``close()``.  The learner
 role builds :class:`R2D2ApexTrainer` over sockets
 (:func:`apex_tpu_torch.runtime.roles.run_learner`); remote policy serves
 the DQN family only, as in the reference.

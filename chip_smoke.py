@@ -207,8 +207,9 @@ Phases, each of which exits nonzero on failure before any result line:
    ``slo-smoke`` drill: ``python -m apex_tpu_torch.obs.soak --loadgen 1``
    over the launcher with remote-policy actors and a supervised infer
    server that chaos kills at its 40th request, a ``fleet.supervise
-   --scale-signal slo`` probe beside it, the SLO windows cut to an 80 s
-   budget: ``infer_rt_p99_ms`` walks OK, BURNING, BREACHED, RESOLVED; the
+   --scale-signal slo`` probe beside it, the SLO windows cut to a 180 s
+   budget that ends (the learner's SIGINT) once ``infer_rt_p99_ms`` has
+   RESOLVED: it walks OK, BURNING, BREACHED, RESOLVED; the
    artifact is an ``apex_soak`` with samples, compliance under 100 and a
    breach; the probe scales up; the learner's gather launches equal its
    steps; no process is left.  Prints steps/s, offered and ingested
@@ -238,7 +239,28 @@ Phases, each of which exits nonzero on failure before any result line:
    left; prints steps/s beside phase 5's, the update all-reduce's ms per
    step and each rank's peak memory.  17c (``dp_nccl1``):
    ``ShardedLearner`` at world size 1 over NCCL, 4 fused steps bit-equal
-   to the unsharded fused step.
+   to the unsharded fused step.  17d (``dp_fused``):
+   ``FusedApexTrainer.train`` with ``mesh_shape=(2,)`` over gloo, phase
+   10's 32 lanes (16 per rank) at ``rollout_len`` 16, 16-transition
+   chunks, capacity 2^16 per rank, warm-up 1024, one learner step per
+   dispatch, under deterministic cuDNN (the spawned rank takes rank 0's
+   flags): each rank's gather launches equal the steps; both shards,
+   gathered to the host, and the weights bit-equal to an in-process
+   reference (the two ranks' trainers in threads of this process over
+   gloo, as many dispatches); prints env frames/s and learner steps/s
+   beside phase 10's fused rate.  17e (``dp_anakin``):
+   ``ApexTrainer.train`` at dp 2 over an ``AnakinPool`` (phase 10's
+   engine on rank 0 acting with rank 0's published weights, its chunks
+   aggregated one per rank), 40 steps: every rank's steps and launches,
+   the shards adding up to the ingest.  17f (``dp_service``): 13a's two
+   replay shards and 4 x 8 actors with ``run_learner`` at dp 2, 20
+   steps: every service batch trains on both ranks and every write-back
+   goes to its shard.  17g (``dp_checkpoint``): a dp 2 ``ApexTrainer``
+   at capacity 2^16 per rank on phase 4's chunks (serial drain,
+   deterministic cuDNN) trains 4 steps, saves, trains 4 more on the same
+   ranks; a fresh trainer restores the file and trains 4: the two final
+   bundles (train state, both shards, every generator) bit-equal; no
+   rank process is left after ``close()``.
 
 Then it prints the card's name and power limit, one ``{"kernels": ...}``
 line (``launches`` counts each kernel's main path: phase 5's pipelined
@@ -256,9 +278,10 @@ and ``remote_codec`` and phase 13's ``replay_service`` (the learner's),
 ``ctl_serve``, ``ctl_tenant`` (the learner's), ``ctl_tenant_shards``
 (the shard processes' own) and ``ctl_pbt``, phase 16's ``launch``
 (the learner process's own count), ``launch_shards`` and ``soak``, and
-phase 17's ``dp_reference`` and ``dp_train``, summed over the ranks and
-per rank as ``dp_reference_rank0`` ... ``dp_train_rank1``, and
-``dp_nccl1``) and, last, ``{"ok": true, "device": {...}}``.  It needs one card and exits
+phase 17's ``dp_reference``, ``dp_train``, ``dp_fused``, ``dp_anakin``,
+``dp_service`` (the learner ranks'), ``dp_service_shards`` and
+``dp_checkpoint``, summed over the ranks and per rank as
+``dp_reference_rank0`` ... ``dp_checkpoint_rank1``, and ``dp_nccl1``) and, last, ``{"ok": true, "device": {...}}``.  It needs one card and exits
 nonzero without one.  ``--profile DIR`` also traces a few more
 fused steps of phases 4, 9 and 11 (continuous and pixels) with
 ``torch.profiler``, writes device time by op and by kernel to DIR and
@@ -2153,7 +2176,9 @@ def ondevice_phase(dev, gather, phase5: dict, serial5: dict) -> dict:
         f"{engine['ApexRally-v0']['ms_per_dispatch']:.3f} ms per dispatch")
     return dict(anakin_train=anakin["launches"],
                 anakin_serial=anakin_serial["launches"],
-                fused_train=fused["launches"])
+                fused_train=fused["launches"],
+                fused_rates={k: fused[k] for k in ("steps_per_s",
+                                                   "frames_per_s")})
 
 
 # -- phase 11: the AQL family -----------------------------------------------
@@ -5116,9 +5141,13 @@ LAUNCH_ACTORS = 2            # 16a/16b: actor processes (the drills' count)
 LAUNCH_ENVS = 2              # 16a/16b: envs per actor
 LAUNCH_STEPS = 40            # 16a: the launcher's learner step target
 LAUNCH_SECONDS = 150.0       # 16a's wall-clock bound
-SOAK_SECONDS = 80.0          # 16b: the soak's wall budget (CI's drill: 210)
+#: 16b: the soak's wall budget (CI's drill: 210).  The run ends once
+#: ``infer_rt_p99_ms`` has RESOLVED; kill to RESOLVED took 37.6-77.3 s on
+#: an H100 80GB HBM3 at 700 W, the kill 10-20 s into the soak, as the
+#: host allowed
+SOAK_SECONDS = 180.0
 SOAK_TICK = 1.0              # 16b: status sampling period, s (CI's: 2)
-SOAK_BOUND = 160.0           # 16b's wall-clock bound, teardown included
+SOAK_BOUND = 260.0           # 16b's wall-clock bound, teardown included
 #: CI's slo-smoke drill (.github/workflows/ci.yml), its resolve and ok
 #: damping cut from 10 / 15 s to 5 / 5 s and its page burn from 14.4 to 5
 #: (14a's), so that one outage of two health ticks pages and resolves
@@ -5290,6 +5319,33 @@ def launch_run(dev) -> dict:
                 barrier_s=barrier_s, wall=wall)
 
 
+def _slo_edges(status_port: int) -> set:
+    """The ``(objective, from, to)`` edges of the learner's SLO timeline,
+    from its status server (empty while nothing answers)."""
+    from apex_tpu_torch.obs.soak import sample_status
+
+    got = sample_status(status_port) or {}
+    return {(e["objective"], e["from"], e["to"])
+            for e in (got.get("slo") or {}).get("timeline", [])}
+
+
+def _learner_under(pid: int) -> int | None:
+    """The ``--role learner`` process among ``pid``'s descendants."""
+    todo = _children(pid)
+    while todo:
+        p = todo.pop()
+        try:
+            with open(f"/proc/{p}/cmdline", "rb") as f:
+                argv = f.read().split(b"\0")
+        except OSError:
+            continue
+        if (b"--role" in argv[:-1]
+                and argv[argv.index(b"--role") + 1] == b"learner"):
+            return p
+        todo.extend(_children(p))
+    return None
+
+
 def soak_run(dev) -> dict:
     """16b: CI's ``slo-smoke`` drill on the card.  ``python -m
     apex_tpu_torch.obs.soak`` drives the launcher with a loadgen, 2
@@ -5318,7 +5374,7 @@ def soak_run(dev) -> dict:
         + " ".join(f"{k}={v}" for k, v in SOAK_ENV.items())
         + ", and a --scale-signal slo probe")
     t0 = time.perf_counter()
-    kill_wall = None
+    kill_wall = kill_at = ended_at = None
     with open(probe_log, "wb") as pout, open(soak_log, "wb") as sout:
         probe = subprocess.Popen(
             [sys.executable, "-m", "apex_tpu_torch.fleet.supervise",
@@ -5342,6 +5398,18 @@ def soak_run(dev) -> dict:
                     with open(soak_log, "rb") as f:
                         if b"chaos: killing infer-0" in f.read():
                             kill_wall = time.time()
+                            kill_at = time.perf_counter() - t0
+                elif ended_at is None and ("infer_rt_p99_ms", "BREACHED",
+                                           "RESOLVED") in _slo_edges(
+                                               ports[3]):
+                    # the drill has walked: end the run as the launcher's
+                    # step target would, through the learner's SIGINT (it
+                    # ends after the step, dumps its summary, exits 0)
+                    learner_pid = _learner_under(soak.pid)
+                    if learner_pid is not None:
+                        os.kill(learner_pid, signal.SIGINT)
+                        ended_at = time.perf_counter() - t0
+                    time.sleep(0.8)
                 time.sleep(0.2)
         finally:
             for proc in (soak, probe):
@@ -5384,14 +5452,18 @@ def soak_run(dev) -> dict:
             return "n/a"
         return f"{walls[state] - kill_wall:.3f} s"
 
-    log(f"{what}: exit {soak.returncode} in {wall:.3f} s; "
+    log(f"{what}: exit {soak.returncode} in {wall:.3f} s ("
+        + ("its budget ran out" if ended_at is None else
+           f"the learner stopped {ended_at:.3f} s in, once RESOLVED")
+        + "); "
         f"{len(art.get('samples', []))} samples; learner "
         f"{thr.get('steps_final')} steps, steps/s over the sampled span "
         f"{thr.get('steps_per_s')}; offered {thr.get('offered_frames_final')}"
         f" frames (the loadgen's, sealed on the card) vs ingested "
         f"{thr.get('ingested_final')} (the learner's, from the loadgen and "
         f"the actors; saturation {thr.get('saturation')}); infer-0 killed "
-        f"to BURNING "
+        f"{'n/a' if kill_at is None else f'{kill_at:.3f} s'} into the soak; "
+        f"kill to BURNING "
         f"{since_kill('BURNING')}, to BREACHED {since_kill('BREACHED')}, to "
         f"RESOLVED {since_kill('RESOLVED')}; infer_rt_p99_ms compliance "
         f"{comp}, breaches {breaches}; timeline "
@@ -5913,8 +5985,12 @@ def dp_train_run(dev, gather, p5: dict, p17a: dict) -> dict:
     check(n_logged > 0, "dp_train: no learner metrics logged")
     alive = [p.pid for p in trainer.pool.procs if p.is_alive()]
     check(not alive, f"dp_train: actor processes {alive} outlived train()")
+    check([p.name for p in mp.active_children()] == ["apex-dp-rank1"],
+          f"dp_train: after train(), processes {mp.active_children()} "
+          f"(rank 1 parked, no actor)")
+    trainer.close()
     check(trainer._ranks is None and not mp.active_children(),
-          f"dp_train: processes outlived train(): {mp.active_children()}")
+          f"dp_train: processes outlived close(): {mp.active_children()}")
     left = [f for f in os.listdir("/dev/shm")
             if f.startswith(f"{SEGMENT_PREFIX}-{os.getpid()}-")]
     check(not left, f"dp_train: segments left in /dev/shm: {left}")
@@ -6005,9 +6081,436 @@ class _Bundle:
         self.generator = torch.Generator()
 
 
-def dp_phase(dev, gather, msgs: list, p5: dict) -> dict:
-    """Phase 17: 17a, 17b, 17c.  Returns the paths' launches, summed over
-    the ranks and per rank."""
+DP_FUSED_T = 16              # 17d: rollout_len (phase 10's 64 cut) and chunk
+DP_FUSED_WARMUP = 1024       # 17d: warm-up (phase 10's 4096 cut)
+DP_FUSED_STEPS = 6           # 17d: learner steps of train(), one a dispatch
+DP_SHARD_CAPACITY = 2 ** 16  # 17d, 17g: phase 7's capacity per rank
+DP_ANAKIN_STEPS = 40         # 17e: learner steps of train()
+DP_SERVICE_STEPS = 20        # 17f: learner steps of run_learner
+DP_CKPT_STEPS = 4            # 17g: learner steps of each train()
+
+
+def _shard_digest(state=None, stacked=None, rank: int = 0) -> str:
+    """sha256 of one replay shard's tensors and host numbers, in field
+    order: a live state's (copied to the host tensor by tensor), or row
+    ``rank`` of a stacked bundle's ``replay_state``."""
+    import hashlib
+
+    from apex_tpu_torch.parallel.learner import state_leaves
+
+    def at(path):
+        node = stacked
+        for part in path.split("/"):
+            node = node[part]
+        return node[rank]
+
+    h = hashlib.sha256()
+    tensors, numbers = state_leaves(state)
+    for path, t in tensors:
+        row = t if stacked is None else at(path)
+        h.update(row.detach().cpu().contiguous().numpy().tobytes())  # apexlint: disable=T006 -- a digest reads each field once
+    for path, v in numbers:
+        h.update(np.int64(v if stacked is None else int(at(path))).tobytes())
+    return h.hexdigest()
+
+
+def _dp_fused_cfg(mesh: bool):
+    """17d's configuration: phase 10's 32-lane ladder on ``ApexCatch-v0``
+    at batch 512, with ``DP_FUSED_T``-transition chunks, capacity 2^16 per
+    rank and warm-up 1024; ``mesh``: dp 2 (rank 0's), else dp 1 (the
+    other rank's trainer)."""
+    from apex_tpu_torch.config import (ActorConfig, ApexConfig, EnvConfig,
+                                       LearnerConfig, ReplayConfig)
+    return ApexConfig(
+        env=EnvConfig(env_id="ApexCatch-v0", seed=SEED),
+        replay=ReplayConfig(capacity=DP_SHARD_CAPACITY,
+                            warmup=DP_FUSED_WARMUP),
+        learner=LearnerConfig(batch_size=BATCH, target_update_interval=500,
+                              mesh_shape=(DP_WORLD,) if mesh else (1,)),
+        actor=ActorConfig(n_actors=N_ACTORS, n_envs_per_actor=ENVS_PER_ACTOR,
+                          send_interval=DP_FUSED_T))
+
+
+def _fused_ranks_reference(dev, dispatches: int) -> list[dict]:
+    """17d's in-process reference: the two ranks' ``FusedApexTrainer`` in
+    threads of this process, joined to gloo groups over one ``HashStore``
+    on ``dev``, ``dispatches`` lockstep dispatches each.  Returns each
+    rank's weights digest, shard digest and step count."""
+    import threading
+
+    import torch.distributed as dist
+
+    from apex_tpu_torch.ondevice.fused import FusedApexTrainer
+    from apex_tpu_torch.parallel.mesh import init_dp
+
+    store = dist.HashStore()
+    out, errors = [None] * DP_WORLD, []
+
+    def run(rank):
+        try:
+            kw = dict(device=dev, rollout_len=DP_FUSED_T,
+                      steps_per_dispatch=1, respawn_workers=False)
+            t = (FusedApexTrainer(_dp_fused_cfg(True), dp_backend="gloo",
+                                  **kw) if rank == 0 else
+                 FusedApexTrainer(_dp_fused_cfg(False),
+                                  lanes=(rank, DP_WORLD), **kw))
+            group = init_dp(DP_WORLD, rank, backend="gloo", store=store,
+                            device=dev)
+            t._join_dp(group)
+            for _ in range(dispatches):
+                t._fused_dispatch()
+            torch.cuda.synchronize()
+            out[rank] = {"params": _digest(t.train_state.params.parameters()),
+                         "replay": _shard_digest(t.replay_state),
+                         "step": t.train_state.step}
+            group.close()
+        except BaseException as exc:       # raised below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=run, args=(r,), daemon=True)
+               for r in range(DP_WORLD)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600.0)
+    if errors:
+        raise errors[0]
+    check(not any(t.is_alive() for t in threads),
+          "dp_fused: a reference rank hung")
+    return out
+
+
+def dp_fused_run(dev, gather, p10: dict) -> dict:
+    """17d (``dp_fused``): ``FusedApexTrainer.train`` at dp 2 over gloo on
+    ``"cuda"`` (module docstring), against :func:`_fused_ranks_reference`
+    on the same number of dispatches."""
+    import multiprocessing as mp
+
+    from apex_tpu_torch.ondevice.fused import FusedApexTrainer
+
+    what = "dp_fused"
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        trainer = FusedApexTrainer(_dp_fused_cfg(True), rollout_len=DP_FUSED_T,
+                                   steps_per_dispatch=1, dp_backend="gloo",
+                                   publish_min_seconds=0.5)  # on "cuda"
+        fused = trainer.fused
+        for name in gather.LAUNCH_COUNTS:             # main path starts
+            gather.LAUNCH_COUNTS[name] = 0
+        t0 = time.perf_counter()
+        trainer.train(total_steps=DP_FUSED_STEPS, max_seconds=DP_SECONDS,
+                      log_every=2)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches0 = dict(gather.LAUNCH_COUNTS)        # main path ends
+        ranks = trainer.dp_rank_stats
+        steps, dispatches = trainer.steps, fused.dispatches
+        counters = fused.counters()
+        sizes = list(fused.shard_sizes)
+        t1 = time.perf_counter()
+        bundle = trainer._sharded_bundle()            # the shards, gathered
+        gather_s = time.perf_counter() - t1
+        got = {"params": _digest(trainer.train_state.params.parameters()),
+               "replay": [_shard_digest(trainer.replay_state,
+                                        bundle["replay_state"], r)
+                          for r in range(DP_WORLD)]}
+        moved = trainer._dp.stats["transfer_bytes"]
+        del bundle
+        trainer.close()
+        check(not mp.active_children(),
+              f"{what}: processes outlived close(): {mp.active_children()}")
+        del trainer, fused
+        torch.cuda.empty_cache()
+        ref = _fused_ranks_reference(dev, dispatches)
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags
+    torch.cuda.empty_cache()
+    launches1 = ranks[1]["gather_launches"]
+    check(DP_FUSED_STEPS <= steps and counters["dp"] == DP_WORLD,
+          f"{what}: {steps} learner steps in {dispatches} dispatches, "
+          f"counters {counters}")
+    for r, counts in enumerate((launches0, launches1)):
+        check(counts == {"gather_rows": 0, "gather_stacks": steps},
+              f"{what}: rank {r} gather launches {counts} in {steps} steps")
+    check(ranks[1]["steps"] == steps,
+          f"{what}: rank 1 took {ranks[1]['steps']} steps")
+    check(min(sizes) > 0 and sum(sizes) == counters["transitions"],
+          f"{what}: shard sizes {sizes}, {counters['transitions']} "
+          f"transitions")
+    check(ref[0]["step"] == ref[1]["step"] == steps,
+          f"{what}: reference steps {[r['step'] for r in ref]}")
+    check(got["params"] == ref[0]["params"] == ref[1]["params"],
+          f"{what}: weights differ from the in-process reference")
+    for r in range(DP_WORLD):
+        check(got["replay"][r] == ref[r]["replay"],
+              f"{what}: rank {r}'s shard differs from the reference")
+    log(f"{what}: FusedApexTrainer.train at dp {DP_WORLD} (gloo, one card, "
+        f"{ENVS_PER_ACTOR * N_ACTORS // DP_WORLD} lanes per rank, T "
+        f"{DP_FUSED_T}, batch {BATCH} = {BATCH // DP_WORLD} per rank, "
+        f"capacity {DP_SHARD_CAPACITY} per rank): {steps} learner steps in "
+        f"{dispatches} dispatches, {wall:.3f} s of train(); shards {sizes} "
+        f"({counters['chunks']} chunks, {counters['transitions']} "
+        f"transitions); both shards ({moved / 2**20:.1f} MiB from rank 1 in "
+        f"{gather_s:.3f} s) and the weights bit-equal to the in-process "
+        f"reference; gather launches rank 0 {launches0}, rank 1 "
+        f"{launches1}")
+    log(f"{what}: learner steps/s {steps / wall:.3f}, env frames/s "
+        f"{counters['frames'] / wall:.1f} over train(), against phase 10's "
+        f"fused {p10['steps_per_s']:.3f} steps/s and "
+        f"{p10['frames_per_s']:.1f} frames/s (one rank, 32 lanes, T 64, 4 "
+        f"macro steps a dispatch)")
+    return {"launches": {k: launches0[k] + launches1[k] for k in launches0},
+            "rank_launches": [launches0, launches1]}
+
+
+def dp_anakin_run(dev, gather) -> dict:
+    """17e (``dp_anakin``): ``ApexTrainer.train`` at dp 2 over gloo with
+    an ``AnakinPool`` (phase 10's engine on rank 0's card, acting with
+    rank 0's published weights), ``DP_ANAKIN_STEPS`` learner steps."""
+    import dataclasses
+    import multiprocessing as mp
+
+    from apex_tpu_torch.training.anakin import AnakinPool, make_anakin_engine
+    from apex_tpu_torch.training.apex import ApexTrainer
+
+    what = "dp_anakin"
+    cfg = _ondevice_cfg("ApexCatch-v0")
+    cfg = cfg.replace(learner=dataclasses.replace(cfg.learner,
+                                                  mesh_shape=(DP_WORLD,)))
+    pool = AnakinPool(cfg, make_anakin_engine(cfg, rollout_len=ONDEVICE_T))
+    trainer = ApexTrainer(cfg, pool=pool, publish_min_seconds=0.5,
+                          dp_backend="gloo")                # on "cuda"
+    for name in gather.LAUNCH_COUNTS:                 # main path starts
+        gather.LAUNCH_COUNTS[name] = 0
+    t0 = time.perf_counter()
+    trainer.train(total_steps=DP_ANAKIN_STEPS, max_seconds=DP_SECONDS,
+                  log_every=20)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches0 = dict(gather.LAUNCH_COUNTS)            # main path ends
+    ranks = trainer.dp_rank_stats
+    trainer.close()
+    check(not mp.active_children(),
+          f"{what}: processes outlived close(): {mp.active_children()}")
+    launches1 = ranks[1]["gather_launches"]
+    steps = trainer.steps
+    check(steps == DP_ANAKIN_STEPS,
+          f"{what}: {steps} learner steps in {wall:.1f} s")
+    for r, counts in enumerate((launches0, launches1)):
+        check(counts == {"gather_rows": 0, "gather_stacks": steps},
+              f"{what}: rank {r} gather launches {counts} in {steps} steps")
+        check(ranks[r]["steps"] == steps,
+              f"{what}: rank {r} took {ranks[r]['steps']} steps")
+    sizes = [ranks[r]["replay_size"] for r in range(DP_WORLD)]
+    check(min(sizes) > 0 and sum(sizes) == trainer.ingested,
+          f"{what}: shard sizes {sizes}, {trainer.ingested} ingested")
+    counters = pool.ondevice_counters()
+    check(counters["dispatches"] > 0 and pool._acting_version >= 1,
+          f"{what}: engine {counters}, acted on version "
+          f"{pool._acting_version}")
+    n_logged = _finite_logged(trainer)
+    check(n_logged > 0, f"{what}: no learner metrics logged")
+    log(f"{what}: ApexTrainer.train at dp {DP_WORLD} over AnakinPool "
+        f"({ONDEVICE_LANES} lanes x T {ONDEVICE_T} on rank 0, chunks of "
+        f"{SEND_INTERVAL} one per rank per group): {steps} learner steps "
+        f"in {wall:.3f} s, {steps / wall:.3f} steps/s; {trainer.ingested} "
+        f"transitions ({trainer.ingested / wall:.1f} env frames/s over "
+        f"train()), shards {sizes}; engine {counters}, acting on up to "
+        f"version {pool._acting_version} of {trainer.param_version}; "
+        f"gather launches rank 0 {launches0}, rank 1 {launches1}")
+    del trainer, pool
+    torch.cuda.empty_cache()
+    return {"launches": {k: launches0[k] + launches1[k] for k in launches0},
+            "rank_launches": [launches0, launches1]}
+
+
+def dp_service_run(dev, gather) -> dict:
+    """17f (``dp_service``): 13a's topology (two ``--role replay`` shards
+    on the card, 4 actors x 8 envs through the CLI) with ``run_learner``
+    at dp 2 over gloo, ``DP_SERVICE_STEPS`` learner steps."""
+    import dataclasses
+    import multiprocessing as mp
+
+    what = "dp_service"
+    ports = _free_ports(3)
+    base = _port_block(2)
+    cfg = _service_cfg(ports, replay_shards=2, replay_port_base=base)
+    cfg = cfg.replace(learner=dataclasses.replace(cfg.learner,
+                                                  mesh_shape=(DP_WORLD,)))
+    shared = _role_argv(ports, "--replay-shards", "2",
+                        "--replay-port-base", str(base))
+    roles = RoleProcesses()
+    try:
+        for s in range(2):
+            roles.launch(f"replay-{s}", ["--role", "replay", "--shard-id",
+                                         str(s), *shared, *_device_flag(dev)],
+                         {})
+        for i in range(N_ACTORS):
+            roles.launch(f"actor-{i}", ["--role", "actor", *shared],
+                         _actor_env(i))
+        trainer, wall, launches0 = _learner_run(
+            dev, gather, roles, what, cfg, n_peers=N_ACTORS,
+            total_steps=DP_SERVICE_STEPS, dp_backend="gloo")
+        _stop_roles(roles, what)
+        shards = [roles.stats(f"replay-{s}") for s in range(2)]
+    finally:
+        roles.close()
+    check(not mp.active_children(),
+          f"{what}: processes outlived the run: {mp.active_children()}")
+    check(all(st is not None for st in shards),
+          f"{what}: a shard printed no stats")
+    client = trainer.replay_client
+    ranks = trainer.dp_rank_stats
+    launches1 = ranks[1]["gather_launches"]
+    local = trainer.steps - trainer.service_steps
+    check(trainer.steps == DP_SERVICE_STEPS and trainer.service_steps > 0,
+          f"{what}: {trainer.steps} learner steps ({trainer.service_steps} "
+          f"on service batches) in {wall:.1f} s")
+    check(ranks[1]["steps"] == trainer.steps
+          and ranks[1]["service_steps"] == trainer.service_steps,
+          f"{what}: rank 1 took {ranks[1]['steps']} steps, "
+          f"{ranks[1]['service_steps']} on service batches")
+    for r, counts in enumerate((launches0, launches1)):
+        check(counts == {"gather_rows": 0, "gather_stacks": local},
+              f"{what}: rank {r} gather launches {counts} with {local} "
+              f"local fallback steps")
+    check(client.prio_sent == trainer.service_steps
+          and client.prio_dropped == 0,
+          f"{what}: {client.prio_sent} write-backs sent, "
+          f"{client.prio_dropped} dropped, for {trainer.service_steps} "
+          f"batches")
+    applied = sum(st["wb_applied"] for st in shards)
+    check(0 < applied <= client.prio_sent,
+          f"{what}: the shards applied {applied} write-backs of "
+          f"{client.prio_sent}")
+    if dev.type == "cuda":
+        for s, st in enumerate(shards):
+            check(st["gather_launches"]["gather_stacks"] == st["sampled"],
+                  f"{what}: shard {s} launched {st['gather_launches']} for "
+                  f"{st['sampled']} batches")
+    log(f"{what}: run_learner at dp {DP_WORLD} (gloo, one card) with 2 "
+        f"replay shards and {N_ACTORS} x {ENVS_PER_ACTOR} actors: "
+        f"{trainer.steps} learner steps in {wall:.3f} s (barrier "
+        f"included), {trainer.service_steps} on service batches of "
+        f"{BATCH} ({BATCH // DP_WORLD} rows per rank), {local} local; "
+        f"{client.batches} pulled, {client.prio_sent} write-backs sent, "
+        f"{applied} applied by the shards ("
+        + ", ".join(f"shard {s}: {st['wb_applied']}"
+                    for s, st in enumerate(shards))
+        + f"); learner steps/s {trainer.steps_rate.rate:.3f}; gather "
+        f"launches rank 0 {launches0}, rank 1 {launches1}, shards "
+        f"{[st['gather_launches']['gather_stacks'] for st in shards]}")
+    shard_launches = {"gather_rows": 0, "gather_stacks": sum(
+        st["gather_launches"]["gather_stacks"] for st in shards)}
+    del trainer
+    torch.cuda.empty_cache()
+    return {"launches": {k: launches0[k] + launches1[k] for k in launches0},
+            "rank_launches": [launches0, launches1],
+            "shard_launches": shard_launches}
+
+
+def dp_checkpoint_run(dev, gather, msgs: list) -> dict:
+    """17g (``dp_checkpoint``): a dp 2 ``ApexTrainer`` at capacity 2^16 per
+    rank on phase 4's chunks (serial drain, deterministic cuDNN): A trains
+    ``DP_CKPT_STEPS``, saves, and trains as many more on the same ranks;
+    B, fresh, restores A's file and trains ``DP_CKPT_STEPS`` on the chunks
+    A took after its save.  A's and B's final bundles bit-equal."""
+    import dataclasses
+    import multiprocessing as mp
+    import tempfile
+
+    from apex_tpu_torch.training.apex import ApexTrainer
+
+    what = "dp_checkpoint"
+    cfg = _full_width_cfg(False, DP_SHARD_CAPACITY)
+    cfg = cfg.replace(learner=dataclasses.replace(cfg.learner,
+                                                  mesh_shape=(DP_WORLD,)))
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    a = b = None
+    try:
+        with tempfile.TemporaryDirectory(prefix="apex-dp-ckpt-") as tmp:
+            def trainer(name, chunks):
+                return ApexTrainer(cfg, pool=ListPool(chunks),
+                                   publish_min_seconds=10.0,
+                                   respawn_workers=False, dp_backend="gloo",
+                                   checkpoint_dir=os.path.join(tmp, name))
+
+            a = trainer("a", msgs)
+            for name in gather.LAUNCH_COUNTS:         # main path starts
+                gather.LAUNCH_COUNTS[name] = 0
+            a.train(total_steps=DP_CKPT_STEPS, max_seconds=DP_SECONDS)
+            t0 = time.perf_counter()
+            path = a.save_checkpoint()
+            save_s = time.perf_counter() - t0
+            size = os.path.getsize(path)
+            rest = list(a.pool.pool._msgs)
+            a.train(total_steps=DP_CKPT_STEPS, max_seconds=DP_SECONDS)
+            torch.cuda.synchronize()
+            launches_a = dict(gather.LAUNCH_COUNTS)
+            ranks_a = a.dp_rank_stats
+            b = trainer("b", rest)
+            t0 = time.perf_counter()
+            b.restore(path)
+            restore_s = time.perf_counter() - t0
+            for name in gather.LAUNCH_COUNTS:
+                gather.LAUNCH_COUNTS[name] = 0
+            b.train(total_steps=DP_CKPT_STEPS, max_seconds=DP_SECONDS)
+            torch.cuda.synchronize()
+            launches_b = dict(gather.LAUNCH_COUNTS)   # main path ends
+            ranks_b = b.dp_rank_stats
+            # the bundles a save would write, gathered to the host
+            same = _same(b._sharded_bundle(), a._sharded_bundle())
+            steps = (a.steps, b.steps)
+            for t in (a, b):
+                t.close()
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags
+        for t in (a, b):
+            if t is not None:
+                t.close()
+    check(not mp.active_children(),
+          f"{what}: processes outlived close(): {mp.active_children()}")
+    check(steps == (2 * DP_CKPT_STEPS, 2 * DP_CKPT_STEPS),
+          f"{what}: steps {steps}")
+    check(same, f"{what}: the restored trainer's bundle differs from the "
+                f"uninterrupted one's")
+    want_l = {"gather_rows": 0, "gather_stacks": 2 * DP_CKPT_STEPS}
+    check(launches_a == want_l and ranks_a[1]["gather_launches"] == want_l,
+          f"{what}: A's gather launches {launches_a} / "
+          f"{ranks_a[1]['gather_launches']}")
+    want_l = {"gather_rows": 0, "gather_stacks": DP_CKPT_STEPS}
+    check(launches_b == want_l and ranks_b[1]["gather_launches"] == want_l,
+          f"{what}: B's gather launches {launches_b} / "
+          f"{ranks_b[1]['gather_launches']}")
+    log(f"{what}: dp {DP_WORLD} ApexTrainer, capacity {DP_SHARD_CAPACITY} "
+        f"per rank: {DP_CKPT_STEPS} steps, a {size} byte checkpoint "
+        f"(saved in {save_s:.3f} s, both shards gathered), {DP_CKPT_STEPS} "
+        f"more on the same ranks; a fresh trainer restored it in "
+        f"{restore_s:.3f} s (rank 1's shard scattered at its start) and "
+        f"took {DP_CKPT_STEPS} steps: the two final bundles (train state, "
+        f"both shards, every generator and the uniforms) bit-equal; no rank "
+        f"left after close(); gather launches A {launches_a} + rank 1 "
+        f"{ranks_a[1]['gather_launches']}, B {launches_b} + rank 1 "
+        f"{ranks_b[1]['gather_launches']}")
+    torch.cuda.empty_cache()
+    r0 = {k: launches_a[k] + launches_b[k] for k in launches_a}
+    r1 = {k: ranks_a[1]["gather_launches"][k]
+          + ranks_b[1]["gather_launches"][k] for k in launches_a}
+    return {"launches": {k: r0[k] + r1[k] for k in r0},
+            "rank_launches": [r0, r1]}
+
+
+def dp_phase(dev, gather, msgs: list, p5: dict, p10: dict) -> dict:
+    """Phase 17: 17a-17g.  Returns the paths' launches, summed over the
+    ranks and per rank (17f's shard processes' apart)."""
     t = [time.perf_counter()]
     dp_build_check()
     t.append(time.perf_counter())
@@ -6020,13 +6523,25 @@ def dp_phase(dev, gather, msgs: list, p5: dict) -> dict:
     nccl = dp_nccl1_run(dev, gather, msgs)
     torch.cuda.empty_cache()
     t.append(time.perf_counter())
-    names = ("dp_build", "dp_reference", "dp_train", "dp_nccl1")
+    fused = dp_fused_run(dev, gather, p10)
+    t.append(time.perf_counter())
+    anakin = dp_anakin_run(dev, gather)
+    t.append(time.perf_counter())
+    service = dp_service_run(dev, gather)
+    t.append(time.perf_counter())
+    ckpt = dp_checkpoint_run(dev, gather, msgs)
+    t.append(time.perf_counter())
+    names = ("dp_build", "dp_reference", "dp_train", "dp_nccl1", "dp_fused",
+             "dp_anakin", "dp_service", "dp_checkpoint")
     log("dp: phase 17 seconds: " + ", ".join(
         f"{n} {b - a:.1f}" for n, a, b in zip(names, t, t[1:]))
         + f"; in all {t[-1] - t[0]:.1f}")
-    out = {"dp_reference": ref["launches"], "dp_train": run["launches"],
-           "dp_nccl1": nccl["launches"]}
-    for name, res in (("dp_reference", ref), ("dp_train", run)):
+    out = {"dp_nccl1": nccl["launches"],
+           "dp_service_shards": service["shard_launches"]}
+    for name, res in (("dp_reference", ref), ("dp_train", run),
+                      ("dp_fused", fused), ("dp_anakin", anakin),
+                      ("dp_service", service), ("dp_checkpoint", ckpt)):
+        out[name] = res["launches"]
         for r, counts in enumerate(res["rank_launches"]):
             out[f"{name}_rank{r}"] = counts
     return out
@@ -6091,6 +6606,7 @@ def main() -> int:
     r2d2_single = r2d2_single_phase(dev, gather)
     mark("r2d2")
     ondevice = ondevice_phase(dev, gather, loop, serial)
+    fused10 = ondevice.pop("fused_rates")
     mark("ondevice")
     aql = aql_phase(dev, gather, args.profile)
     mark("aql")
@@ -6104,7 +6620,7 @@ def main() -> int:
     mark("control")
     tools = tools_phase(dev)
     mark("tools")
-    dp = dp_phase(dev, gather, msgs, loop)
+    dp = dp_phase(dev, gather, msgs, loop, fused10)
     mark("dp")
     log("chip_smoke: phase seconds " + ", ".join(
         f"{name} {t1 - t0:.1f}"

@@ -7,11 +7,11 @@
   ``--dp-backend``.
 * ``config_from_args`` of both agree on every field the port's config
   shares with JAX's.
-* ``--mesh-dp`` above 1 with a path the sharded learner does not take
-  yet (``--rollout fused|ondevice``, ``--replay-shards``,
-  ``--checkpoint-dir``) exits with status 2 naming its ROADMAP slice;
-  ``--role apex --mesh-dp 2 --dp-backend gloo --device cpu`` trains two
-  ranks and leaves no process.
+* ``--role apex --mesh-dp 2 --dp-backend gloo --device cpu`` trains two
+  ranks and leaves no process, with host actors, ``--rollout fused``,
+  ``--rollout ondevice`` and ``--checkpoint-dir`` (then ``--restore``),
+  and so does ``--role learner --mesh-dp 2 --replay-shards 2`` on two
+  localhost shard threads' batches.
   The three controllers (``--role serve-ctl|tenant-ctl|pbt-ctl``) read
   their flags and env twins and take their control rounds against a fake
   learner's status server on localhost, exiting 0.  ``--role status`` exits 1 with the JAX message when no
@@ -173,23 +173,141 @@ def test_config_from_args_agrees_with_jax_on_every_shared_field(
             ident.learner_ip) == ("actor", 4, 5, "10.0.0.9")
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["--role", "apex", "--mesh-dp", "2", "--rollout", "fused"],
-     "slice 14"),
-    (["--role", "learner", "--mesh-dp", "2", "--rollout", "ondevice"],
-     "slice 14"),
-    (["--role", "learner", "--mesh-dp", "2", "--replay-shards", "2"],
-     "slice 14"),
-    (["--role", "apex", "--mesh-dp", "2", "--dp-backend", "gloo",
-      "--device", "cpu", "--env-id", "ApexCartPole-v0", "--capacity",
-      "1024", "--checkpoint-dir", "/nonexistent"], "slice 14"),
-])
-def test_unported_paths_exit_2_naming_their_item(monkeypatch, capsys, argv,
-                                                 item):
+DP_ARGV = ["--mesh-dp", "2", "--dp-backend", "gloo", "--device", "cpu",
+           "--batch-size", "16", "--max-seconds", "120"]
+CATCH_ARGV = ["--env-id", "ApexCatchSmall-v0", "--frame-stack", "2",
+              "--n-actors", "1", "--n-envs-per-actor", "2",
+              "--send-interval", "8", "--capacity", "512"]
+CARTPOLE_ARGV = ["--env-id", "ApexCartPole-v0", "--frame-stack", "1",
+                 "--n-actors", "1", "--send-interval", "16", "--warmup",
+                 "64", "--capacity", "1024"]
+
+
+def _shard_threads(cfg_argv: list, n: int):
+    """``n`` replay shard servers on threads of this process, each already
+    warm with CartPole chunks, on the ports ``cfg_argv`` names."""
+    import threading
+
+    from apex_tpu_torch.replay_service.service import (ReplayShardServer,
+                                                       build_shard_core)
+    from tests.test_torch_sharded_pipeline import _cartpole_chunk_messages
+
+    cfg = cli.config_from_args(cli.build_parser().parse_args(cfg_argv))
+    msgs = _cartpole_chunk_messages(8 * n, seed=2)
+    servers, threads, stop = [], [], threading.Event()
+    for shard in range(n):
+        core = build_shard_core(cfg, shard, device="cpu")
+        for msg in msgs[shard::n]:
+            core.ingest_msg(msg)
+        assert core.warm
+        servers.append(ReplayShardServer(cfg.comms, shard, core,
+                                         bind_ip="127.0.0.1"))
+    for srv in servers:
+        threads.append(threading.Thread(target=srv.run, daemon=True,
+                                        kwargs={"stop_event": stop}))
+        threads[-1].start()
+
+    def close():
+        stop.set()
+        for t, srv in zip(threads, servers):
+            t.join(timeout=10)
+            srv.close()
+
+    return servers, close
+
+
+@pytest.mark.parametrize("case", ["fused", "ondevice", "replay-shards",
+                                  "checkpoint-dir"])
+def test_sharded_paths_train_two_gloo_ranks_on_the_cpu(monkeypatch,
+                                                       tmp_path, case):
+    """Each path the sharded learner takes, through ``main`` with
+    ``--mesh-dp 2 --dp-backend gloo --device cpu``: exit 0, both ranks
+    take every step, and no process is left (the roles close their
+    trainers)."""
+    import multiprocessing as mp
+
+    import torch
+
     _clear_env(monkeypatch)
-    assert cli.main(argv) == 2
-    err = capsys.readouterr().err
-    assert f"ROADMAP {item}" in err, err
+    # two ranks share this host's cores: one torch thread each (the
+    # spawned rank inherits the variable)
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    from apex_tpu_torch.training.apex import ConcurrentTrainer
+
+    # the trainers the roles close at their end, in order
+    seen = []
+    real_close = ConcurrentTrainer.close
+    monkeypatch.setattr(ConcurrentTrainer, "close",
+                        lambda self: seen.append(self) or real_close(self))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        _run_sharded_case(case, tmp_path, seen, mp)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _run_sharded_case(case, tmp_path, seen, mp):
+    before = set(mp.active_children())
+    if case == "fused":
+        argv = ["--role", "apex", "--rollout", "fused", "--rollout-len",
+                "8", "--steps-per-dispatch", "1", "--warmup", "16",
+                "--total-steps", "3"] + CATCH_ARGV + DP_ARGV
+        assert cli.main(argv) == 0
+        (t,) = seen
+        assert type(t).__name__ == "FusedApexTrainer" and t.n_dp == 2
+        assert t.steps >= 3 and t.fused.counters()["dp"] == 2
+        assert t.dp_rank_stats[1]["steps"] == t.steps
+        assert len(t.fused.shard_sizes) == 2
+        assert all(n > 0 for n in t.fused.shard_sizes)
+    elif case == "ondevice":
+        argv = ["--role", "apex", "--rollout", "ondevice", "--rollout-len",
+                "16", "--warmup", "64", "--total-steps", "6"] + CATCH_ARGV \
+            + DP_ARGV
+        assert cli.main(argv) == 0
+        (t,) = seen
+        engine = t.pool.pool.engine                # AnakinPool, aggregated
+        assert t.n_dp == 2 and engine.dispatches > 0
+        assert t.pool.pool._version >= 1           # rank 0's live weights
+        assert t.steps == 6 and t.dp_rank_stats[1]["steps"] == 6
+        sizes = [t.dp_rank_stats[r]["replay_size"] for r in (0, 1)]
+        assert min(sizes) > 0 and sum(sizes) == t.ingested
+    elif case == "replay-shards":
+        from tests.test_torch_replay_service import _free_port_block
+        ports = [_free_port_block(2)] + [_free_port() for _ in range(4)]
+        argv = ["--role", "learner", "--replay-shards", "2",
+                "--replay-port-base", str(ports[0]),
+                "--batch-port", str(ports[1]), "--param-port", str(ports[2]),
+                "--barrier-port", str(ports[3]), "--status-port",
+                str(ports[4]), "--total-steps", "6"] + CARTPOLE_ARGV \
+            + DP_ARGV + ["--n-actors", "0", "--n-evaluators", "0"]
+        servers, close = _shard_threads(argv, 2)
+        try:
+            assert cli.main(argv) == 0
+        finally:
+            close()
+        (t,) = seen
+        assert t.steps == t.service_steps == 6
+        assert t.dp_rank_stats[1]["service_steps"] == 6
+        assert t.replay_client.prio_sent == 6
+        assert sum(s.core.wb_applied for s in servers) == 6
+    else:
+        ckpt = str(tmp_path / "ckpt")
+        argv = ["--role", "apex", "--checkpoint-dir", ckpt,
+                "--save-interval", "4"] + CARTPOLE_ARGV + DP_ARGV
+        assert cli.main(argv + ["--total-steps", "8"]) == 0
+        from apex_tpu_torch.training.checkpoint import (Checkpointer,
+                                                        load_raw)
+        path = Checkpointer(ckpt).latest_path()
+        raw, meta = load_raw(path)
+        assert meta["dp"] == 2 and meta["steps"] >= 4
+        assert raw["replay_state"]["size"].shape == (2,)
+        assert cli.main(argv + ["--total-steps", "4", "--restore"]) == 0
+        first, second = seen
+        assert first.steps == 8
+        assert second.steps == meta["steps"] + 4
+        assert second.dp_rank_stats[1]["steps"] == second.steps
+    assert set(mp.active_children()) <= before
 
 
 def test_apex_role_trains_two_gloo_ranks_on_the_cpu(monkeypatch):

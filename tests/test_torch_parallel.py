@@ -571,8 +571,10 @@ def test_nccl_refuses_without_a_card_per_rank_and_names_gloo():
 
 def test_two_rank_apex_trainer_trains_and_leaves_no_process():
     """``ApexTrainer.train`` with ``mesh_shape=(2,)``: rank 0 here, rank 1
-    spawned, one actor process; every rank takes every step, both shards
-    fill, and neither a rank nor an actor is left after ``train()``."""
+    spawned, one actor process; every rank takes every step and both
+    shards fill.  The rank outlives ``train()`` (parked), a second
+    ``train()`` continues on it, and neither a rank nor an actor is left
+    after ``close()``."""
     from apex_tpu_torch.training.apex import ApexTrainer
 
     cfg = small_test_config(capacity=1024, batch_size=32, n_actors=1)
@@ -593,8 +595,15 @@ def test_two_rank_apex_trainer_trains_and_leaves_no_process():
         assert rec["collectives"]["allreduce_calls"] == 12
     # no shard wrapped: the two shards hold every transition ingested
     assert stats[0]["replay_size"] + stats[1]["replay_size"] == t.ingested
+    alive = set(mp.active_children()) - before
+    assert [p.name for p in alive] == ["apex-dp-rank1"]
+    t.train(total_steps=2, max_seconds=120, log_every=6)
+    assert t.steps_rate.total == 14
+    assert t.dp_rank_stats[1]["steps"] == 14
+    assert set(mp.active_children()) - before == alive    # the same rank
+    t.close()
     assert set(mp.active_children()) <= before
-    with pytest.raises(RuntimeError, match="trains once"):
+    with pytest.raises(RuntimeError, match="replay shards"):
         t.train(total_steps=1)
 
 

@@ -308,4 +308,7 @@ def test_pipelined_sharded_plan_is_bit_identical_to_the_serial_one():
                 == run.ingested)
     assert (serial.dp_rank_stats[1]["replay_size"]
             == piped.dp_rank_stats[1]["replay_size"])
+    # the ranks outlive train() (parked) and stop on close()
+    for run in (serial, piped):
+        run.close()
     assert set(mp.active_children()) <= before
