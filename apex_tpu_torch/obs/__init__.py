@@ -5,7 +5,9 @@
   stage -> consume -> prio_wb), never into the payload, and the
   learner-side join into frame-age-at-train and param-propagation-lag.
 * :mod:`~apex_tpu_torch.obs.trace` — a bounded, sampled, host-only
-  trace-event ring per process, dumped as Chrome trace JSON;
+  trace-event ring per process, dumped as Chrome trace JSON, and the
+  program spans (``span``) that land in it and in a running profiler's
+  trace;
   :mod:`~apex_tpu_torch.obs.merge` aligns the per-process files into one
   fleet timeline.
 * :mod:`~apex_tpu_torch.obs.metrics` — Prometheus text exposition served

@@ -1,7 +1,8 @@
 """Chunk lineage spans: timestamp metadata following one chunk fleet-wide.
 
 Counterpart of :mod:`apex_tpu.obs.spans`, the same hops, keys and
-histograms (stdlib only).
+histograms, and the port's own per-hop histograms and set-up milestones
+(stdlib only).
 
 A span is a tiny dict riding OUTSIDE the tensor payload on the chunk
 message (``msg[SPAN_KEY]`` is a list of spans — one per source chunk
@@ -38,7 +39,11 @@ publish-time ledger (version -> publish clocks) plus the two headline
 sealed wall) and *param-propagation-lag* (consume mono - publish mono of
 the version the chunk was ACTED under: how long a published policy takes
 to come back as trainable experience, the Ape-X staleness loop measured
-end to end).
+end to end) — and one more per consecutive pair of present hops
+(``send→recv``: a chunk's wait between the actor's put and the learner's
+poll), read off ``summary()["hops_s"]``.
+
+:class:`SetupClock` stamps the set-up milestones of one ``train()`` call.
 
 Everything is stdlib + host clocks, and never waits for the device: safe
 on hot loops.
@@ -166,9 +171,36 @@ class LatencyHistogram:
         }
 
 
+class TimedHistogram(LatencyHistogram):
+    """A :class:`LatencyHistogram` that keeps each value's wall time too,
+    so that a snapshot can keep to the values recorded between two
+    times."""
+
+    def __init__(self, window: int = 4096):
+        super().__init__(window)
+        self._at: deque[float] = deque(maxlen=window)
+
+    def record(self, v: float, at: float = 0.0) -> None:
+        super().record(v)
+        self._at.append(at)
+
+    def snapshot(self, between: tuple[float, float] | None = None) -> dict:
+        """The whole window's snapshot, or with ``between = (lo, hi)``
+        that of the values recorded at ``lo <= at <= hi``."""
+        if between is None:
+            return super().snapshot()
+        lo, hi = between
+        part = LatencyHistogram(max(1, len(self._vals)))
+        for v, at in zip(self._vals, self._at):
+            if lo <= at <= hi:
+                part.record(v)
+        return part.snapshot()
+
+
 class LearnerObs:
     """Learner-side span join: publish ledger + the two headline
-    histograms + sampled chunk-lineage trace events.
+    histograms + one histogram per hop pair (``hops``) + sampled
+    chunk-lineage trace events.
 
     Call order per consumed slot (both the pipelined and serial drains):
     :meth:`pre_consume` immediately before the dispatch (stamps
@@ -182,6 +214,9 @@ class LearnerObs:
                  clock=time.monotonic, wall=time.time):
         self.frame_age = LatencyHistogram()
         self.param_lag = LatencyHistogram()
+        # one per consecutive pair of present hops, "sealed→send", ...,
+        # each value at its chunk's consume wall time
+        self.hops: dict[str, TimedHistogram] = {}
         self._pub: OrderedDict[int, tuple[float, float]] = OrderedDict()
         self._max_versions = max_versions
         self.ring = ring
@@ -220,22 +255,30 @@ class LearnerObs:
             if pub is not None:
                 # mono clocks: publish and consume both happen HERE
                 self.param_lag.record(max(0.0, now_mono - pub[0]))
-            if self.ring is not None:
-                self._emit_lineage(span)
+            self._join_hops(span, now_wall)
 
-    def _emit_lineage(self, span: dict) -> None:
-        """One trace event per consecutive hop pair, on the learner
-        ring's wall timebase — the chunk's whole journey renders as one
-        stacked track in the merged perfetto timeline."""
+    def _join_hops(self, span: dict, now_wall: float) -> None:
+        """Each consecutive pair of present hops, on the wall clock (the
+        pairs cross processes): into its histogram in :attr:`hops` at
+        ``now_wall``, and
+        with a ring, one trace event on the learner ring's wall timebase
+        — the chunk's whole journey renders as one stacked track in the
+        merged perfetto timeline."""
         hops = span.get("hops", {})
         present = [(h, hops[h]) for h in HOPS if h in hops]
         for (h1, t1), (h2, t2) in zip(present, present[1:]):
             dur = t2[1] - t1[1]
             if dur < 0:          # cross-host wall skew can invert a hop
                 continue
-            self.ring.complete_wall(f"{h1}→{h2}", t1[1], dur,
-                                    track="chunk-lineage",
-                                    args={"pv": span.get("pv", 0)})
+            pair = f"{h1}→{h2}"
+            hist = self.hops.get(pair)
+            if hist is None:
+                hist = self.hops[pair] = TimedHistogram(1 << 14)
+            hist.record(dur, now_wall)
+            if self.ring is not None:
+                self.ring.complete_wall(pair, t1[1], dur,
+                                        track="chunk-lineage",
+                                        args={"pv": span.get("pv", 0)})
 
     # -- read surface ------------------------------------------------------
 
@@ -251,10 +294,69 @@ class LearnerObs:
             "obs_spans_consumed": self.spans_consumed,
         }
 
-    def summary(self) -> dict:
-        """The e2e bench ``latency`` section body."""
+    def summary(self, between: tuple[float, float] | None = None) -> dict:
+        """The e2e bench ``latency`` section body; with ``between`` (wall
+        seconds), ``hops_s`` holds only the chunks consumed within it."""
         return {
             "frame_age_at_train_s": self.frame_age.snapshot(),
             "param_propagation_lag_s": self.param_lag.snapshot(),
             "spans_consumed": self.spans_consumed,
+            "hops_s": {pair: hist.snapshot(between)
+                       for pair, hist in dict(self.hops).items()},
         }
+
+
+class SetupClock:
+    """The set-up milestones of one ``train()`` call on ``clock``, each
+    stamped once, in :attr:`MILESTONES` order: the call's entry (at
+    construction), the pool started, the first chunk ingested, the replay
+    warm, the first learner step returned.  With an enabled ``ring``,
+    each milestone is also one ``apex.setup.<name>`` event on ``track``
+    lasting from the milestone before it."""
+
+    MILESTONES = ("train", "pool_started", "first_ingest", "warm",
+                  "first_step")
+
+    def __init__(self, ring=None, track: str | None = None,
+                 clock=time.monotonic):
+        self._clock = clock
+        self.ring = ring
+        self.track = track
+        self.stamps: dict[str, float] = {}
+        self.pending = True
+        self.stamp("train")
+
+    def stamp(self, name: str) -> None:
+        if name in self.stamps:
+            return
+        t = self._clock()
+        if self.ring is not None and self.ring.enabled and self.stamps:
+            dur = t - max(self.stamps.values())
+            self.ring.complete(f"apex.setup.{name}",
+                               time.perf_counter() - dur, dur,
+                               track=self.track)
+        self.stamps[name] = t
+        self.pending = len(self.stamps) < len(self.MILESTONES)
+
+    def observe(self, ingested: bool, warm: bool, stepped: bool) -> None:
+        """The hot loop's milestones, checked once an iteration while any
+        is pending."""
+        if ingested:
+            self.stamp("first_ingest")
+        if warm:
+            self.stamp("warm")
+        if stepped:
+            self.stamp("first_step")
+
+    def durations(self) -> dict:
+        """Seconds between consecutive stamped milestones
+        (``"pool_started_to_first_ingest"``, ...) and from the call's entry
+        to the first step (``"train_to_first_step"``)."""
+        got = [(n, self.stamps[n]) for n in self.MILESTONES
+               if n in self.stamps]
+        out = {f"{a}_to_{b}": tb - ta
+               for (a, ta), (b, tb) in zip(got, got[1:])}
+        if "first_step" in self.stamps:
+            out["train_to_first_step"] = (self.stamps["first_step"]
+                                          - self.stamps["train"])
+        return out

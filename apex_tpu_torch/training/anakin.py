@@ -63,6 +63,7 @@ from apex_tpu_torch.envs.device_envs import (UNIFORM, DrawSource,
                                              make_device_env)
 from apex_tpu_torch.fleet.heartbeat import HeartbeatEmitter
 from apex_tpu_torch.obs import spans as obs_spans
+from apex_tpu_torch.obs.trace import STAGING_TRACK, span
 from apex_tpu_torch.replay.frame_chunks import FRAME_MARGIN
 
 
@@ -662,7 +663,8 @@ class AnakinPool:
                     # stream
                     self.engine.model.load_state_dict(self._params)
                     self._acting_version = self._version
-                msgs, stats = self.engine.rollout()
+                with span("apex.anakin.rollout", STAGING_TRACK):
+                    msgs, stats = self.engine.rollout()
                 for stat in stats:
                     stat.param_version = self._acting_version
                 self._pending.extend(msgs)

@@ -62,7 +62,12 @@ health tick.  The chunks' lineage spans are stamped ``consume`` before
 and ``prio_wb`` after each dispatch and joined into the frame-age and
 param-lag histograms (:class:`~apex_tpu_torch.obs.spans.LearnerObs`,
 :meth:`ConcurrentTrainer.latency_summary`).  Spans are metadata: the
-learner's state is the same with them on or off.
+learner's state is the same with them on or off.  The hot loop's
+dispatches and polls are program spans (``apex.learner.*``,
+:func:`~apex_tpu_torch.obs.trace.span`), and each
+``train()`` call stamps its set-up milestones
+(:class:`~apex_tpu_torch.obs.spans.SetupClock`, ``latency_summary()
+["setup_s"]``).
 
 The control planes (``apex.py:158-180, 552-601, 740-761, 879-895,
 981-1150``): the snapshots that ``--role serve-ctl``, ``tenant-ctl`` and
@@ -136,7 +141,8 @@ from apex_tpu_torch.fleet.registry import FleetRegistry
 from apex_tpu_torch.models.dueling import (DuelingDQN, host_params,
                                            make_policy_fn)
 from apex_tpu_torch.obs import spans as obs_spans
-from apex_tpu_torch.obs.trace import get_ring, set_process_label
+from apex_tpu_torch.obs.trace import (LEARNER_TRACK, get_ring,
+                                      set_process_label, span)
 from apex_tpu_torch.ops.gather import LAUNCH_COUNTS
 from apex_tpu_torch.ops.losses import make_optimizer
 from apex_tpu_torch.parallel.aggregate import ChunkAggregator, split_group
@@ -265,6 +271,8 @@ class ConcurrentTrainer(CheckpointableTrainer):
     floor_relaxes = 0               # times the reaction engaged
     # the learner-side span join; persists across train() calls
     _obs = None
+    # the set-up milestones of the latest train() call
+    _setup: obs_spans.SetupClock | None = None
     # the controllers' latest snapshots off the stat channel (serve-ctl,
     # tenant-ctl, pbt-ctl): the serving, tenancy and population sections
     serving_state: dict | None = None
@@ -815,10 +823,13 @@ class ConcurrentTrainer(CheckpointableTrainer):
         target_steps = self.steps_rate.total + total_steps
         set_process_label("learner")
         ring = get_ring()
+        setup = self._setup = obs_spans.SetupClock(ring=ring,
+                                                   track=LEARNER_TRACK)
+        steps0, ingested0 = self.steps_rate.total, self.ingested
         if self._obs is None:
             self._obs = obs_spans.LearnerObs(ring=ring)
         gap = self._dispatch_gap = DispatchGapTimer(ring=ring,
-                                                    track="learner-hot-loop")
+                                                    track=LEARNER_TRACK)
         if self.fleet is None:
             self.fleet = FleetRegistry(cfg.comms)
         pipeline = None
@@ -843,6 +854,7 @@ class ConcurrentTrainer(CheckpointableTrainer):
             self._pipeline = None      # never started; publish serially
             self._dp_end(graceful=False)
             raise
+        setup.stamp("pool_started")
         # a socket pool stamps its publishes with this life's epoch, so a
         # parked actor tells a restarted learner from a stalled one
         set_epoch = getattr(pool, "set_learner_epoch", None)
@@ -895,9 +907,10 @@ class ConcurrentTrainer(CheckpointableTrainer):
                     # is the training a learner behind owes
                     slot = None
                     if not behind or client is not None:
-                        slot = pipeline.poll_slot(
-                            timeout=0 if (warm or client is not None)
-                            else 0.05)
+                        with span("apex.learner.poll", LEARNER_TRACK):
+                            slot = pipeline.poll_slot(
+                                timeout=0 if (warm or client is not None)
+                                else 0.05)
                     if slot is not None:
                         got_data = True
                         m = self._consume_slot(slot, warm, budget,
@@ -908,7 +921,8 @@ class ConcurrentTrainer(CheckpointableTrainer):
                     if client is not None and steps < budget:
                         # serial service path: one pre-sampled batch per
                         # iteration, its write-back sent inline
-                        item = client.poll_batch(timeout=0.02)
+                        with span("apex.learner.poll", LEARNER_TRACK):
+                            item = client.poll_batch(timeout=0.02)
                         if item is not None:
                             got_data = True
                             metrics = self._consume_batch_slot(
@@ -922,8 +936,9 @@ class ConcurrentTrainer(CheckpointableTrainer):
                         want = self.scan_steps
                     msgs = []
                     if not behind:
-                        msgs = pool.poll_chunks(want,
-                                                timeout=0 if warm else 0.05)
+                        with span("apex.learner.poll", LEARNER_TRACK):
+                            msgs = pool.poll_chunks(
+                                want, timeout=0 if warm else 0.05)
                     if msgs:
                         got_data = True
                         m = self._drain_serial(msgs, want, warm, budget)
@@ -931,19 +946,25 @@ class ConcurrentTrainer(CheckpointableTrainer):
                             metrics = m
                 if not got_data and warm and steps < budget:
                     gap.about_to_dispatch()
-                    if self.n_dp > 1:
-                        metrics = self._dp_dispatch("train")
-                    else:
-                        self.train_state, self.replay_state, metrics = \
-                            self.core.train_step(self.train_state,
-                                                 self.replay_state,
-                                                 self._offsets(),
-                                                 self._beta())
+                    with span("apex.learner.dispatch", LEARNER_TRACK):
+                        if self.n_dp > 1:
+                            metrics = self._dp_dispatch("train")
+                        else:
+                            self.train_state, self.replay_state, metrics = \
+                                self.core.train_step(self.train_state,
+                                                     self.replay_state,
+                                                     self._offsets(),
+                                                     self._beta())
                     gap.dispatch_returned()
                     self.dispatches["train"] += 1
                     self.steps_rate.tick()
                 elif not got_data and warm:
                     time.sleep(0.002)   # replay-ratio cap reached
+                if setup.pending:
+                    setup.observe(
+                        ingested=self.ingested > ingested0,
+                        warm=self.ingested >= cfg.replay.warmup,
+                        stepped=self.steps_rate.total > steps0)
 
                 steps = self.steps_rate.total
                 # interval since the last save: a scan dispatch can step
@@ -1139,14 +1160,20 @@ class ConcurrentTrainer(CheckpointableTrainer):
 
     # -- the fleet and obs planes (apex.py:672-979) ------------------------
 
-    def latency_summary(self) -> dict | None:
+    def latency_summary(self, between: tuple[float, float] | None = None
+                        ) -> dict | None:
         """The chunk-lineage histograms (frame age at train,
-        param-propagation lag) and the hot loop's dispatch-gap
-        percentiles, or None before :meth:`train`."""
+        param-propagation lag, each hop pair's ``hops_s``: with
+        ``between``, of the chunks consumed within those wall seconds
+        only), the hot loop's dispatch-gap percentiles and, where
+        :meth:`train` stamps them, its latest call's set-up durations
+        (``setup_s``), or None before :meth:`train`."""
         if self._obs is None:
             return None
-        out = self._obs.summary()
+        out = self._obs.summary(between)
         out["dispatch_gap_ms"] = self._dispatch_gap.snapshot()
+        if self._setup is not None:
+            out["setup_s"] = self._setup.durations()
         return out
 
     def _metrics_text(self) -> str:
@@ -1537,10 +1564,11 @@ class ConcurrentTrainer(CheckpointableTrainer):
         betas = [self._beta(self.ingested + int(o)) for o in starts]
         gap = self._dispatch_gap
         gap.about_to_dispatch()
-        self.train_state, self.replay_state, stacked = \
-            self.core.fused_multi_step(
-                self.train_state, self.replay_state, payloads, prios,
-                self._offsets(len(payloads)), betas)
+        with span("apex.learner.dispatch", LEARNER_TRACK):
+            self.train_state, self.replay_state, stacked = \
+                self.core.fused_multi_step(
+                    self.train_state, self.replay_state, payloads, prios,
+                    self._offsets(len(payloads)), betas)
         gap.dispatch_returned()
         self.dispatches["scan"] += 1
         self.steps_rate.tick(len(payloads))
@@ -1557,26 +1585,27 @@ class ConcurrentTrainer(CheckpointableTrainer):
         gap = self._dispatch_gap
         metrics = None
         gap.about_to_dispatch()
-        if self.n_dp > 1:
-            if remote is None:
-                parts = split_group(payload, prios, self.n_dp)
-                (payload, prios), remote = parts[0], parts[1:]
-            metrics = self._dp_dispatch("fused" if train else "ingest",
-                                        payload, prios, remote, n_trans)
-            self.dispatches["fused" if train else "ingest"] += 1
-            if train:
+        with span("apex.learner.dispatch", LEARNER_TRACK):
+            if self.n_dp > 1:
+                if remote is None:
+                    parts = split_group(payload, prios, self.n_dp)
+                    (payload, prios), remote = parts[0], parts[1:]
+                metrics = self._dp_dispatch("fused" if train else "ingest",
+                                            payload, prios, remote, n_trans)
+                self.dispatches["fused" if train else "ingest"] += 1
+                if train:
+                    self.steps_rate.tick()
+            elif train:
+                self.train_state, self.replay_state, metrics = \
+                    self.core.fused_step(
+                        self.train_state, self.replay_state, payload, prios,
+                        self._offsets(), self._beta())
+                self.dispatches["fused"] += 1
                 self.steps_rate.tick()
-        elif train:
-            self.train_state, self.replay_state, metrics = \
-                self.core.fused_step(
-                    self.train_state, self.replay_state, payload, prios,
-                    self._offsets(), self._beta())
-            self.dispatches["fused"] += 1
-            self.steps_rate.tick()
-        else:
-            self.replay_state = self.core.ingest(self.replay_state, payload,
-                                                 prios)
-            self.dispatches["ingest"] += 1
+            else:
+                self.replay_state = self.core.ingest(self.replay_state,
+                                                     payload, prios)
+                self.dispatches["ingest"] += 1
         gap.dispatch_returned()
         self.ingested += n_trans
         self.frames_rate.tick(n_trans)
@@ -1738,14 +1767,18 @@ class ConcurrentTrainer(CheckpointableTrainer):
         back ``[batch]`` in sample order (``apex.py:1221-1273``)."""
         gap = self._dispatch_gap
         gap.about_to_dispatch()
-        if self.n_dp > 1:
-            self._dp_send("batch", per_rank=[{"chunk": blob}
-                                             for blob in slot.remote])
-            self.train_state, prios, metrics = self._sl_batch(
-                self.train_state, batch_from_wire(slot.payload), slot.prios)
-        else:
-            self.train_state, prios, metrics = self.core.update_from_batch(
-                self.train_state, batch_from_wire(slot.payload), slot.prios)
+        with span("apex.learner.dispatch", LEARNER_TRACK):
+            if self.n_dp > 1:
+                self._dp_send("batch", per_rank=[{"chunk": blob}
+                                                 for blob in slot.remote])
+                self.train_state, prios, metrics = self._sl_batch(
+                    self.train_state, batch_from_wire(slot.payload),
+                    slot.prios)
+            else:
+                self.train_state, prios, metrics = \
+                    self.core.update_from_batch(
+                        self.train_state, batch_from_wire(slot.payload),
+                        slot.prios)
         gap.dispatch_returned()
         self.steps_rate.tick()
         self.service_steps += 1

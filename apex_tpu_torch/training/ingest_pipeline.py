@@ -59,8 +59,9 @@ never the payload: the staging thread stamps ``recv`` on each polled
 message (first wins, so the socket receiver's earlier stamp survives),
 ``merge`` on a scan or merged group and ``stage`` on every slot, whose
 ``spans`` the trainer stamps ``consume`` and ``prio_wb`` on.  Each staged
-slot, publish and write-back is also one event on the ``ingest-staging``
-track of the process's trace ring.
+slot, publish and write-back is one program span (``apex.ingest.stage``,
+``.publish``, ``.writeback``; :func:`~apex_tpu_torch.obs.trace.span`) on
+the ``ingest-staging`` track.
 
 Sharded plan (``n_dp`` > 1, ``ingest_pipeline.py:55-74``): the pool is a
 :class:`~apex_tpu_torch.parallel.aggregate.ChunkAggregator`, so each polled
@@ -100,7 +101,7 @@ import torch
 
 from apex_tpu_torch import resolve_device
 from apex_tpu_torch.obs import spans as obs_spans
-from apex_tpu_torch.obs.trace import get_ring
+from apex_tpu_torch.obs.trace import STAGING_TRACK, span
 from apex_tpu_torch.ops.tree import stratified_offsets
 from apex_tpu_torch.parallel.aggregate import (split_group, tree_index,
                                                tree_stack)
@@ -401,7 +402,6 @@ class IngestPipeline:
                       "merged_chunks": 0, "publishes": 0}
         if replay_client is not None:
             self.stats |= {"batch_slots": 0, "writebacks": 0}
-        self.ring = get_ring()
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name="apex-ingest-staging")
 
@@ -500,11 +500,8 @@ class IngestPipeline:
                         item = self.client.poll_batch(timeout=0)
                         if item is not None:
                             self._idle.clear()
-                            t0 = time.perf_counter()
-                            slot = self._build_batch_slot(item)
-                            self.ring.complete("stage_batch", t0,
-                                               time.perf_counter() - t0,
-                                               track="ingest-staging")
+                            with span("apex.ingest.stage", STAGING_TRACK):
+                                slot = self._build_batch_slot(item)
                             self._put(slot)
                             continue
                 if st.behind:
@@ -518,11 +515,8 @@ class IngestPipeline:
                     self._idle.set()
                     continue
                 self._idle.clear()
-                t0 = time.perf_counter()
-                slot = self._build_slot(msgs[0], st)
-                self.ring.complete(f"stage_{slot.kind}", t0,
-                                   time.perf_counter() - t0,
-                                   track="ingest-staging")
+                with span("apex.ingest.stage", STAGING_TRACK):
+                    slot = self._build_slot(msgs[0], st)
                 self._put(slot)
         except Exception as exc:        # surfaces in poll_slot
             self._error = exc
@@ -648,16 +642,14 @@ class IngestPipeline:
                 if not self._wb_q:
                     return
                 shard, seq, idx, prios, ready = self._wb_q.popleft()
-            t0 = time.perf_counter()
-            if ready is not None:
-                ready.synchronize()
-            self.client.push_priorities(shard, seq, np.asarray(idx),
-                                        prios.detach().cpu().numpy())
+            with span("apex.ingest.writeback", STAGING_TRACK):
+                if ready is not None:
+                    ready.synchronize()
+                # the event's wait above makes this copy's wait deliberate
+                self.client.push_priorities(
+                    shard, seq, np.asarray(idx),
+                    prios.detach().cpu().numpy())  # apexlint: disable=T006
             self.stats["writebacks"] += 1
-            self.ring.complete("prio_writeback", t0,
-                               time.perf_counter() - t0,
-                               track="ingest-staging",
-                               args={"shard": shard})
 
     def _merge_cap(self, payload) -> int:
         """Max chunks mergeable with ``payload`` first: a frame chunk, and
@@ -745,24 +737,22 @@ class IngestPipeline:
         if req is None:
             return
         version, params, ready = req
-        t0 = time.perf_counter()
-        if getattr(self.pool, "accepts_device_params", False):
-            # on-device rollouts take the device copy: this thread's
-            # stream (where the pool's engine loads it) waits for the
-            # copy's event instead of the host, and owns the tensors'
-            # later reads
-            if ready is not None:
-                stream = torch.cuda.current_stream(self.device)
-                stream.wait_event(ready)
-                for t in params.values():
-                    t.record_stream(stream)
-            self.pool.publish_params(version, params)
-        else:
-            if ready is not None:
-                ready.synchronize()
-            self.pool.publish_params(
-                version, {name: t.cpu().numpy()
-                          for name, t in params.items()})
+        with span("apex.ingest.publish", STAGING_TRACK):
+            if getattr(self.pool, "accepts_device_params", False):
+                # on-device rollouts take the device copy: this thread's
+                # stream (where the pool's engine loads it) waits for the
+                # copy's event instead of the host, and owns the tensors'
+                # later reads
+                if ready is not None:
+                    stream = torch.cuda.current_stream(self.device)
+                    stream.wait_event(ready)
+                    for t in params.values():
+                        t.record_stream(stream)
+                self.pool.publish_params(version, params)
+            else:
+                if ready is not None:
+                    ready.synchronize()
+                self.pool.publish_params(
+                    version, {name: t.cpu().numpy()
+                              for name, t in params.items()})
         self.stats["publishes"] += 1
-        self.ring.complete("publish", t0, time.perf_counter() - t0,
-                           track="ingest-staging", args={"version": version})

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from apex_tpu_torch.obs.trace import LEARNER_TRACK, span
 from apex_tpu_torch.ops.losses import (ClipRMSprop, double_dqn_loss,
                                        make_optimizer)
 from apex_tpu_torch.replay.base import check_hbm_budget
@@ -58,16 +59,20 @@ class LearnerCore:
     def train_step(self, train_state: TrainState, replay_state: ReplayStates,
                    offsets: torch.Tensor, beta: float):
         """Sample -> loss -> update -> priorities."""
-        batch, weights, idx = self.replay.sample(replay_state, offsets, beta)
+        with span("apex.learner.sample", LEARNER_TRACK):
+            batch, weights, idx = self.replay.sample(replay_state, offsets,
+                                                     beta)
         train_state, priorities, metrics = self.update_from_batch(
             train_state, batch, weights)
-        replay_state = self.replay.update_priorities(replay_state, idx,
-                                                     priorities)
+        with span("apex.learner.priorities", LEARNER_TRACK):
+            replay_state = self.replay.update_priorities(replay_state, idx,
+                                                         priorities)
         return train_state, replay_state, metrics
 
     def ingest(self, replay_state: ReplayStates, chunk: dict,
                priorities) -> ReplayStates:
-        return self.replay.add(replay_state, chunk, priorities)
+        with span("apex.learner.ingest", LEARNER_TRACK):
+            return self.replay.add(replay_state, chunk, priorities)
 
     def fused_step(self, train_state: TrainState, replay_state: ReplayStates,
                    chunk: dict, priorities, offsets: torch.Tensor,
@@ -112,21 +117,23 @@ def td_update(optimizer: ClipRMSprop, target_update_interval: int,
     update (``apex_tpu/training/learner.py:135-152``); the priorities stay
     this rank's."""
     params = list(train_state.params.parameters())
-    loss, aux = loss_fn()
-    grads = list(torch.autograd.grad(loss, params))
+    with span("apex.learner.loss", LEARNER_TRACK):
+        loss, aux = loss_fn()
+        grads = list(torch.autograd.grad(loss, params))
     scalars = None
-    if group is not None:
-        scalars = torch.stack([aux.loss, aux.q_taken.detach().mean(),
-                               aux.td_abs.mean()])
-        group.all_reduce_mean_(grads + [scalars])
-    grad_norm = optimizer.step(params, grads, train_state.opt_state)
+    with span("apex.learner.optimizer", LEARNER_TRACK):
+        if group is not None:
+            scalars = torch.stack([aux.loss, aux.q_taken.detach().mean(),
+                                   aux.td_abs.mean()])
+            group.all_reduce_mean_(grads + [scalars])
+        grad_norm = optimizer.step(params, grads, train_state.opt_state)
 
-    train_state.step += 1
-    if train_state.step % target_update_interval == 0:
-        with torch.no_grad():
-            for tgt, src in zip(train_state.target_params.parameters(),
-                                params):
-                tgt.copy_(src)
+        train_state.step += 1
+        if train_state.step % target_update_interval == 0:
+            with torch.no_grad():
+                for tgt, src in zip(train_state.target_params.parameters(),
+                                    params):
+                    tgt.copy_(src)
 
     if scalars is None:
         metrics = {

@@ -234,3 +234,157 @@ def test_apex_trainer_refuses_an_oversized_replay():
                                           hbm_budget_gb=0.5))
     with pytest.raises(ValueError, match="budget"):
         ApexTrainer(cfg, device="cpu")
+
+
+# -- program spans -------------------------------------------------------------
+
+LEARNER_PHASES = ("apex.learner.dispatch", "apex.learner.ingest",
+                  "apex.learner.sample", "apex.learner.loss",
+                  "apex.learner.optimizer", "apex.learner.priorities")
+
+
+def _apex_ranges(prof) -> list:
+    """The profiler's ``apex.*`` user ranges, ``(start, end, name)`` in
+    start order."""
+    return sorted((e.start_ns(), e.start_ns() + e.duration_ns(), e.name())
+                  for e in prof.profiler.kineto_results.events()
+                  if e.is_user_annotation() and e.name().startswith("apex."))
+
+
+def _cpu_profiler():
+    return torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU])
+
+
+def test_a_fused_step_lays_its_phase_ranges_inside_its_dispatch():
+    """Under a profiler started with ``.start()``, as the benchmark starts
+    it: one fused step's five phases appear once each, in step order,
+    disjoint and inside the dispatch's range."""
+    trainer = ApexTrainer(_small_cfg(), device="cpu")
+    msgs = _messages(trainer, 3)
+    for msg in msgs[:2]:                   # the warm-up fill: ingest only
+        assert trainer.consume([msg]) is None
+    prof = _cpu_profiler()
+    prof.start()
+    try:
+        assert trainer.consume([msgs[2]]) is not None
+    finally:
+        prof.stop()
+    ranges = _apex_ranges(prof)
+    assert [name for _, _, name in ranges] == list(LEARNER_PHASES)
+    (d0, d1, _), *phases = ranges
+    assert all(d0 <= s <= t <= d1 for s, t, _ in phases)
+    assert all(a[1] <= b[0] for a, b in zip(phases, phases[1:]))
+
+
+def _state_equal(a, b) -> bool:
+    for x, y in ((a.train_state.params, b.train_state.params),
+                 (a.train_state.target_params, b.train_state.target_params)):
+        if not all(torch.equal(p, q) for p, q in
+                   zip(x.state_dict().values(), y.state_dict().values())):
+            return False
+    ra, rb = a.replay_state, b.replay_state
+    return (all(torch.equal(p, q) for p, q in
+                zip(a.train_state.opt_state.mu, b.train_state.opt_state.mu))
+            and torch.equal(ra.sum_tree, rb.sum_tree)
+            and torch.equal(ra.min_tree, rb.min_tree)
+            and torch.equal(ra.frames, rb.frames)
+            and torch.equal(a.generator.get_state(), b.generator.get_state()))
+
+
+def test_fused_steps_are_bit_equal_with_profiler_and_ring_on_and_off(
+        monkeypatch):
+    """Four fused steps (after the warm-up fill) with a profiler
+    recording and the trace ring enabled, and with neither: the weights,
+    target, optimizer moments, replay and sample generator agree bit for
+    bit, and the traced run recorded every phase span."""
+    from apex_tpu_torch.obs import trace as obs_trace
+
+    runs = []
+    for on in (True, False):
+        ring = obs_trace.TraceRing("learner", enabled=on)
+        monkeypatch.setattr(obs_trace, "_RING", ring)
+        trainer = ApexTrainer(_small_cfg(), device="cpu")
+        msgs = _messages(trainer, 6, seed=2)
+        prof = _cpu_profiler()
+        if on:
+            prof.start()
+        try:
+            trained = [trainer.consume([m]) is not None for m in msgs]
+        finally:
+            if on:
+                prof.stop()
+        assert trained == [False, False, True, True, True, True]
+        runs.append(trainer)
+        events = [ev["name"] for ev in ring.to_chrome()["traceEvents"]
+                  if ev["ph"] == "X"]
+        assert (events.count("apex.learner.sample") == 4) == on
+        if on:
+            names = [name for _, _, name in _apex_ranges(prof)]
+            assert names.count("apex.learner.dispatch") == 6
+            assert names.count("apex.learner.loss") == 4
+    on, off = runs
+    assert on.steps == off.steps == 4
+    assert _state_equal(on, off)
+
+
+class _ListPool:
+    """An in-process chunk source with the pool interface ``train()``
+    drives."""
+
+    def __init__(self, msgs):
+        self.msgs = list(msgs)
+        self.procs = []
+
+    def start(self):
+        pass
+
+    def cleanup(self):
+        pass
+
+    def publish_params(self, version, params):
+        pass
+
+    def poll_stats(self):
+        return []
+
+    def poll_chunks(self, max_chunks, timeout=0.0):
+        out, self.msgs = self.msgs[:max_chunks], self.msgs[max_chunks:]
+        return out
+
+
+def test_train_stamps_its_setup_milestones_in_order(monkeypatch):
+    """A serial ``train()`` over a toy pool: entry, pool started, first
+    chunk ingested, replay warm and first step are stamped once each, in
+    that order; ``latency_summary()["setup_s"]`` gives the durations
+    between them and to the first step; the enabled ring holds one
+    ``apex.setup.*`` event per milestone after the entry."""
+    from apex_tpu_torch.obs import trace as obs_trace
+    from apex_tpu_torch.obs.spans import SetupClock
+
+    ring = obs_trace.TraceRing("learner", enabled=True)
+    monkeypatch.setattr(obs_trace, "_RING", ring)
+    cfg = _small_cfg()
+    cfg = cfg.replace(learner=LearnerConfig(
+        batch_size=B, target_update_interval=3, compute_dtype="float32",
+        ingest_pipeline=False))
+    maker = ApexTrainer(cfg, device="cpu")
+    trainer = ApexTrainer(cfg, pool=_ListPool(_messages(maker, 4)),
+                          device="cpu", respawn_workers=False)
+    trainer.train(total_steps=3, max_seconds=120, log_every=10 ** 9)
+    assert trainer.steps == 3
+    stamps = trainer._setup.stamps
+    assert list(stamps) == list(SetupClock.MILESTONES)
+    times = list(stamps.values())
+    assert times == sorted(times)
+    setup = trainer.latency_summary()["setup_s"]
+    assert list(setup) == ["train_to_pool_started",
+                           "pool_started_to_first_ingest",
+                           "first_ingest_to_warm", "warm_to_first_step",
+                           "train_to_first_step"]
+    assert all(v >= 0 for v in setup.values())
+    assert setup["train_to_first_step"] == pytest.approx(
+        times[-1] - times[0])
+    events = [ev["name"] for ev in ring.to_chrome()["traceEvents"]
+              if ev["ph"] == "X" and ev["name"].startswith("apex.setup.")]
+    assert events == [f"apex.setup.{m}" for m in SetupClock.MILESTONES[1:]]

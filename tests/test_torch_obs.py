@@ -220,7 +220,14 @@ def test_learner_obs_equals_jax(monkeypatch, seed):
     monkeypatch.setattr(port_spans, "_now", Ticks(seed))
     port, pring = _run_learner_obs(port_spans, port_trace, seed)
     ref, jring = _run_learner_obs(jax_spans, jax_trace, seed)
-    assert port.summary() == ref.summary()
+    got = port.summary()
+    hops = got.pop("hops_s")        # the port's own: one per hop pair
+    assert got == ref.summary()
+    assert set(hops) == {"sealed→send", "send→recv", "recv→stage",
+                         "stage→consume", "consume→prio_wb"}
+    lineage = [ev["name"] for ev in _events(pring) if ev.get("ph") == "X"]
+    assert {pair: h["count"] for pair, h in hops.items()} == {
+        pair: lineage.count(pair) for pair in hops}
     assert port.scalars() == ref.scalars()
     assert port.frame_age.count > 10 and port.param_lag.count > 10
     assert _events(pring) == _events(jring)
@@ -440,11 +447,13 @@ class _ListPool:
 
 
 @pytest.mark.parametrize("merge", [False, True])
-def test_pipeline_stamps_recv_merge_and_stage(merge):
+def test_pipeline_stamps_recv_merge_and_stage(monkeypatch, merge):
     from apex_tpu_torch.replay.frame_chunks import drain_builder_chunks
     from apex_tpu_torch.training.ingest_pipeline import (
         IngestPipeline, PipelineState, merge_chunk_messages)
 
+    ring = port_trace.TraceRing("learner", enabled=True)
+    monkeypatch.setattr(port_trace, "_RING", ring)
     msgs = _chunk_messages(drain_builder_chunks, 9)[:4]
     for i, msg in enumerate(msgs):
         port_spans.mark_send(msg, i)
@@ -475,4 +484,184 @@ def test_pipeline_stamps_recv_merge_and_stage(merge):
         for key, value in ref["payload"].items():
             assert np.array_equal(np.asarray(slots[0].payload[key]),
                                   np.asarray(value)), key
-    assert pipe.ring is port_trace.get_ring()
+    # the staging thread's spans, in the process ring on its own track
+    chrome = ring.to_chrome()["traceEvents"]
+    track = {ev["tid"] for ev in chrome if ev["ph"] == "M"
+             and ev["args"].get("name") == port_trace.STAGING_TRACK}
+    staged = [ev["name"] for ev in chrome
+              if ev["ph"] == "X" and ev["tid"] in track]
+    assert staged.count("apex.ingest.stage") == len(slots)
+
+
+# -- program spans -------------------------------------------------------------
+
+@pytest.fixture
+def fresh_spans(monkeypatch):
+    """A disabled process ring and an empty profiled-span record."""
+    from collections import deque
+
+    ring = port_trace.TraceRing("learner", enabled=False)
+    monkeypatch.setattr(port_trace, "_RING", ring)
+    monkeypatch.setattr(port_trace, "_PROFILED", deque(maxlen=64))
+    return ring
+
+
+def _x_events(ring) -> list[tuple]:
+    chrome = ring.to_chrome()["traceEvents"]
+    tracks = {ev["tid"]: ev["args"]["name"] for ev in chrome
+              if ev["ph"] == "M" and ev["name"] == "thread_name"}
+    return [(ev["name"], tracks.get(ev["tid"])) for ev in chrome
+            if ev["ph"] == "X"]
+
+
+def test_span_with_no_profiler_and_no_ring_is_a_no_op(monkeypatch,
+                                                      fresh_spans):
+    import torch
+
+    def entered(*args, **kwargs):
+        raise AssertionError("record_function entered with no profiler")
+
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", entered)
+    monkeypatch.setattr(torch.profiler, "record_function", entered)
+    made = port_trace.span("apex.learner.sample", port_trace.LEARNER_TRACK)
+    assert made is port_trace._NO_SPAN
+    with made:
+        torch.ones(3).add_(1)
+    assert port_trace.profiled_spans() == []
+    assert _x_events(fresh_spans) == []
+
+
+def test_span_records_its_name_and_track_in_an_enabled_ring(monkeypatch,
+                                                            fresh_spans):
+    ring = port_trace.TraceRing("learner", enabled=True)
+    monkeypatch.setattr(port_trace, "_RING", ring)
+    with port_trace.span("apex.ingest.stage", port_trace.STAGING_TRACK):
+        with port_trace.span("apex.anakin.rollout",
+                             port_trace.STAGING_TRACK):
+            time.sleep(0.001)
+    with port_trace.span("apex.learner.poll", port_trace.LEARNER_TRACK):
+        pass
+    assert _x_events(ring) == [
+        ("apex.anakin.rollout", "ingest-staging"),
+        ("apex.ingest.stage", "ingest-staging"),
+        ("apex.learner.poll", "learner-hot-loop")]
+    assert port_trace.profiled_spans() == []      # no profiler ran
+
+
+def test_span_under_the_profiler_is_a_range_and_a_profiled_span(
+        fresh_spans):
+    """A CPU profiler started with ``.start()``: the span is a user
+    range of the trace, and the in-memory record starts within 5 ms of
+    it on the same clock."""
+    import threading
+
+    import torch
+
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU])
+    prof.start()
+    try:
+        for _ in range(3):
+            with port_trace.span("apex.learner.loss",
+                                 port_trace.LEARNER_TRACK):
+                torch.ones(8).sum()
+    finally:
+        prof.stop()
+    ranges = sorted(e.start_ns() for e in prof.profiler.kineto_results
+                    .events() if e.name() == "apex.learner.loss"
+                    and e.is_user_annotation())
+    spans = port_trace.profiled_spans()
+    assert len(ranges) == len(spans) == 3
+    me = threading.current_thread().name
+    for (name, thread, s, t), r in zip(spans, ranges):
+        assert (name, thread) == ("apex.learner.loss", me)
+        assert s <= t and abs(s - r) < 5_000_000
+    assert _x_events(fresh_spans) == []           # the ring is off
+
+
+def test_a_profiler_stopped_inside_open_spans_raises_nothing(fresh_spans):
+    """The benchmark stops its profiler inside a learner dispatch: the
+    spans still open exit cleanly, and the next span is off."""
+    import torch
+
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU])
+    prof.start()
+    with port_trace.span("apex.learner.dispatch", port_trace.LEARNER_TRACK):
+        with port_trace.span("apex.learner.sample",
+                             port_trace.LEARNER_TRACK):
+            prof.stop()
+            torch.ones(2).sum()
+    assert [s[0] for s in port_trace.profiled_spans()] == [
+        "apex.learner.sample", "apex.learner.dispatch"]
+    assert port_trace.span("apex.learner.loss") is port_trace._NO_SPAN
+
+
+def test_the_trace_module_spans_without_torch():
+    """A fresh interpreter: ``obs.trace`` imports, and its spans run,
+    without loading torch."""
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = ("import sys\n"
+            "from apex_tpu_torch.obs import trace\n"
+            "with trace.span('apex.learner.poll', trace.LEARNER_TRACK):\n"
+            "    pass\n"
+            "print(trace.profiled_spans(), 'torch' in sys.modules)\n")
+    env = {k: v for k, v in os.environ.items()
+           if k != port_trace.TRACE_DIR_ENV}
+    env["PYTHONPATH"] = repo
+    proc = subprocess.run([sys.executable, "-c", code], cwd=repo, env=env,
+                          capture_output=True, text=True, timeout=60)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[] False"
+
+
+def test_learner_obs_hop_histograms_read_the_p50_of_given_clocks():
+    """Spans with every hop given: each consecutive pair's histogram holds
+    its wall-clock differences, the ``send→recv`` p50 the nearest-rank
+    median of the ring waits."""
+    waits = [0.010, 0.030, 0.020, 0.050, 0.040]
+    obs = port_spans.LearnerObs(clock=lambda: 5.0, wall=lambda: 2000.0)
+    for i, wait in enumerate(waits):
+        t = {"sealed": 1000.0 + i}
+        t["send"] = t["sealed"] + 0.001
+        t["recv"] = t["send"] + wait
+        t["stage"] = t["recv"] + 0.002
+        t["consume"] = t["stage"] + 0.004
+        t["prio_wb"] = t["consume"] + 0.008
+        obs.post_consume([{"pv": 0, "hops": {h: (0.0, v)
+                                             for h, v in t.items()}}])
+    hops = obs.summary()["hops_s"]
+    assert list(hops) == ["sealed→send", "send→recv", "recv→stage",
+                          "stage→consume", "consume→prio_wb"]
+    assert all(h["count"] == len(waits) for h in hops.values())
+    assert hops["send→recv"]["p50_s"] == pytest.approx(0.030, abs=1e-6)
+    assert hops["send→recv"]["max_s"] == pytest.approx(0.050, abs=1e-6)
+    for pair, gap in (("sealed→send", 0.001), ("recv→stage", 0.002),
+                      ("stage→consume", 0.004), ("consume→prio_wb", 0.008)):
+        assert hops[pair]["p50_s"] == pytest.approx(gap, abs=1e-6), pair
+
+
+def test_learner_obs_hops_between_keep_to_the_chunks_consumed_within():
+    """``summary(between=(lo, hi))``: each hop pair's snapshot over the
+    chunks consumed at wall times in ``[lo, hi]`` alone; without it, over
+    every chunk; the headline histograms stay whole either way."""
+    wall = [0.0]
+    obs = port_spans.LearnerObs(clock=lambda: 5.0, wall=lambda: wall[0])
+    for at, wait in ((99.0, 4.0), (100.0, 0.010), (100.5, 0.030),
+                     (101.0, 0.020), (102.0, 6.0)):
+        wall[0] = at
+        obs.post_consume([{"pv": 0, "hops": {"sealed": (0.0, at - 9.0),
+                                             "send": (0.0, 50.0),
+                                             "recv": (0.0, 50.0 + wait)}}])
+    inside = obs.summary(between=(100.0, 101.0))
+    hop = inside["hops_s"]["send→recv"]
+    assert hop["count"] == 3 and hop["max_s"] == pytest.approx(0.030)
+    assert hop["p50_s"] == pytest.approx(0.020)
+    assert obs.summary()["hops_s"]["send→recv"]["count"] == 5
+    assert obs.summary(between=(0.0, 1.0))["hops_s"]["send→recv"] == \
+        port_spans.LatencyHistogram().snapshot()
+    assert inside["frame_age_at_train_s"] == \
+        obs.summary()["frame_age_at_train_s"]

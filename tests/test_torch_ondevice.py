@@ -405,6 +405,24 @@ def test_fused_trainer_trains_then_checkpoint_roundtrips(tmp_path):
     assert info["transitions"] > 0 and info["train_steps"] == 2
 
 
+def test_fused_train_with_a_logdir_writes_its_fleet_summary(tmp_path):
+    """A fused ``train()`` with a logdir ends by writing
+    ``fleet_summary.json``; its latency section carries the lineage
+    histograms and no set-up durations, which only the concurrent loop
+    stamps."""
+    import json
+
+    t = FusedApexTrainer(_cfg(), device="cpu", steps_per_dispatch=2,
+                         rollout_len=8, logdir=str(tmp_path))
+    t.train(total_steps=2, max_seconds=120.0, log_every=10 ** 9)
+    latency = t.fleet_summary()["latency"]
+    assert "hops_s" in latency and "setup_s" not in latency
+    with open(tmp_path / "fleet_summary.json", encoding="utf-8") as fh:
+        written = json.load(fh)
+    assert set(written["latency"]) == set(latency)
+    assert written["steps"] >= 2
+
+
 def test_entry_points_default_to_the_card(monkeypatch):
     """The on-device entry points run on the card unless the CPU is asked
     for: without one they raise instead of falling back."""
