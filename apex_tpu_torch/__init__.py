@@ -4,7 +4,8 @@ The JAX package stays the reference; this package mirrors its layout
 (``apex_tpu_torch/ops/tree.py`` is the counterpart of
 ``apex_tpu/ops/tree.py``, and so on) and imports only ``torch`` and
 ``numpy``.  The TPU kernel of the frame-ring gather is a hand-written CUDA
-kernel here (:mod:`apex_tpu_torch.ops.gather`).
+kernel here (:mod:`apex_tpu_torch.ops.gather`), and so is the segment
+trees' update (:mod:`apex_tpu_torch.ops.tree`), which has no TPU kernel.
 
 Entry points take ``device`` (default ``"cuda"``) and raise when no card is
 present unless the caller asks for the CPU (:func:`resolve_device`).

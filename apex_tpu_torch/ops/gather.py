@@ -19,7 +19,7 @@ no mode switch and no fallback: a CUDA call that cannot launch raises.
 
 The kernels are compiled with ``nvcc`` at first use into ``_build/`` (a
 plain C ABI shared library loaded with ``ctypes``; rebuilt when the source
-is newer).  A failed build raises.
+is newer; :mod:`~apex_tpu_torch.ops.cuda_build`).  A failed build raises.
 
 The TPU ring was stored padded to whole (8, 128) tiles and viewed
 ``[F, 8, D/8]`` for Mosaic; here the ring is the plain ``[F, D]`` tensor.
@@ -30,73 +30,29 @@ from __future__ import annotations
 import ctypes
 import math
 import os
-import shutil
-import subprocess
-import tempfile
-import threading
 
 import torch
 
-_HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCE = os.path.join(_HERE, "csrc", "gather.cu")
-BUILD_DIR = os.path.join(_HERE, "_build")
-LIBRARY = os.path.join(BUILD_DIR, "libapex_gather.so")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+from apex_tpu_torch.ops import cuda_build
+
+SOURCE = os.path.join(cuda_build.CSRC, "gather.cu")
+LIBRARY = os.path.join(cuda_build.BUILD_DIR, "libapex_gather.so")
 
 # kernel launches per wrapper; chip_smoke.py zeroes and reads these
 LAUNCH_COUNTS = {"gather_rows": 0, "gather_stacks": 0}
-
-_lib = None
-_lib_lock = threading.Lock()
-
-
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"),
-                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                              "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found (PATH or $CUDA_HOME/bin): the gather "
-                       "kernels are built from source at first use")
 
 
 def build(verbose: bool = False) -> str:
     """Compile ``csrc/gather.cu`` into ``_build/`` unless the library is
     newer than the source.  Returns the library path; raises on failure."""
-    if (os.path.exists(LIBRARY)
-            and os.path.getmtime(LIBRARY) >= os.path.getmtime(SOURCE)):
-        return LIBRARY
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, SOURCE]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    if verbose:
-        print(proc.stdout + proc.stderr, end="", flush=True)
-    os.replace(tmp, LIBRARY)        # atomic: a concurrent loader never
-    return LIBRARY                  # sees a half-written library
+    return cuda_build.build(SOURCE, LIBRARY, verbose)
 
 
-def _library() -> ctypes.CDLL:
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build())
-            ptr, i64 = ctypes.c_void_p, ctypes.c_int64
-            lib.apex_gather_rows.argtypes = [ptr, ptr, ptr, i64, i64, i64,
-                                             ptr]
-            lib.apex_gather_rows.restype = ctypes.c_int
-            lib.apex_gather_stacks.argtypes = [ptr, ptr, ptr, i64, i64, i64,
-                                               i64, i64, ptr]
-            lib.apex_gather_stacks.restype = ctypes.c_int
-            _lib = lib
-        return _lib
+_ptr, _i64 = ctypes.c_void_p, ctypes.c_int64
+_LIB = cuda_build.Library(build, {
+    "apex_gather_rows": [_ptr, _ptr, _ptr, _i64, _i64, _i64],
+    "apex_gather_stacks": [_ptr, _ptr, _ptr, _i64, _i64, _i64, _i64, _i64],
+})
 
 
 def _check(name: str, frames: torch.Tensor, ids: torch.Tensor,
@@ -118,11 +74,7 @@ def _check(name: str, frames: torch.Tensor, ids: torch.Tensor,
 def _launch(name: str, device: torch.device, *args) -> None:
     """Call the library's ``apex_<name>`` on ``device``'s current stream,
     raise if the launch failed, else count it."""
-    with torch.cuda.device(device):
-        err = getattr(_library(), f"apex_{name}")(
-            *args, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+    _LIB.launch(name, device, *args)
     LAUNCH_COUNTS[name] += 1
 
 

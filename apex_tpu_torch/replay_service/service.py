@@ -478,8 +478,9 @@ class ReplayShardServer:
 
     def stats(self) -> dict:
         """The core's counters, the server's, the tree's root against the
-        sum of its leaves and the gather kernel's launches in this
-        process."""
+        sum of its leaves and the gather and tree kernels' launches in
+        this process."""
+        from apex_tpu_torch.ops import tree
         from apex_tpu_torch.ops.gather import LAUNCH_COUNTS
 
         rs, c = self.core.state, self.core.replay.capacity
@@ -503,6 +504,7 @@ class ReplayShardServer:
                 "tree_root": float(rs.sum_tree[1]),
                 "tree_leaves": float(leaves.sum()),
                 "gather_launches": dict(LAUNCH_COUNTS),
+                "tree_launches": dict(tree.LAUNCH_COUNTS),
                 "peak_bytes": _peak_bytes(self.core.device)}
 
     def close(self) -> None:

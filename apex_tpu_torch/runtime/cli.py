@@ -537,6 +537,7 @@ def _stop_on_sigterm(sigint: bool = False) -> threading.Event:
 def _dispatch(args: argparse.Namespace, cfg: ApexConfig,
               identity: RoleIdentity) -> int:
     if args.role == "learner":
+        from apex_tpu_torch.ops import tree
         from apex_tpu_torch.ops.gather import LAUNCH_COUNTS
         from apex_tpu_torch.runtime.roles import run_learner
         trainer = None
@@ -559,7 +560,8 @@ def _dispatch(args: argparse.Namespace, cfg: ApexConfig,
                 dp_backend=args.dp_backend)
         finally:
             signal.signal(signal.SIGINT, prev_sigint)
-            stats = {"gather_launches": dict(LAUNCH_COUNTS)}
+            stats = {"gather_launches": dict(LAUNCH_COUNTS),
+                     "tree_launches": dict(tree.LAUNCH_COUNTS)}
             if trainer is not None:
                 stats |= {"steps": trainer.steps_rate.total,
                           "ingested": trainer.ingested,
@@ -569,7 +571,7 @@ def _dispatch(args: argparse.Namespace, cfg: ApexConfig,
                     stats["dp_ranks"] = {
                         str(r): {k: rec.get(k) for k in
                                  ("steps", "gather_launches",
-                                  "replay_size")}
+                                  "tree_launches", "replay_size")}
                         for r, rec in trainer.dp_rank_stats.items()}
             print(f"learner: stats {json.dumps(stats)}", flush=True)
     elif args.role in ("replay", "infer", "loadgen"):

@@ -143,6 +143,7 @@ from apex_tpu_torch.models.dueling import (DuelingDQN, host_params,
 from apex_tpu_torch.obs import spans as obs_spans
 from apex_tpu_torch.obs.trace import (LEARNER_TRACK, get_ring,
                                       set_process_label, span)
+from apex_tpu_torch.ops import tree as tree_ops
 from apex_tpu_torch.ops.gather import LAUNCH_COUNTS
 from apex_tpu_torch.ops.losses import make_optimizer
 from apex_tpu_torch.parallel.aggregate import ChunkAggregator, split_group
@@ -699,13 +700,15 @@ class ConcurrentTrainer(CheckpointableTrainer):
             self.steps_rate.tick()
 
     def _dp_stats(self) -> dict:
-        """This rank's record: its gather launches, steps, dispatches,
-        shard size, collective counters and the device's peak bytes."""
+        """This rank's record: its gather and tree launches, steps,
+        dispatches, shard size, collective counters and the device's peak
+        bytes."""
         dev = self._dp.device
         peak = (torch.cuda.max_memory_allocated(dev)
                 if dev.type == "cuda" else 0)
         return {"rank": self._dp.rank,
                 "gather_launches": dict(LAUNCH_COUNTS),
+                "tree_launches": dict(tree_ops.LAUNCH_COUNTS),
                 "steps": self.steps_rate.total,
                 "service_steps": self.service_steps,
                 "dispatches": dict(self.dispatches),

@@ -6,9 +6,11 @@ step into one XLA program over donated buffers; here it runs eagerly on
 the card, updating the replay and train state in place (no copies of the
 ring, the trees or the weights).  The replay is either the frame pool of
 the Ape-X trainer or the stacked :class:`~apex_tpu_torch.replay.device.
-DeviceReplay` of the DQN driver (:func:`build_learner`).  The only kernel
-of the step written by hand is the frame-ring gather inside
-:meth:`~apex_tpu_torch.replay.frame_pool.FramePoolReplay.sample`.
+DeviceReplay` of the DQN driver (:func:`build_learner`).  The kernels of
+the step written by hand are the frame-ring gather inside
+:meth:`~apex_tpu_torch.replay.frame_pool.FramePoolReplay.sample` and the
+segment-tree update (:mod:`apex_tpu_torch.ops.tree`), one launch for both
+trees at ingest and one at the priority write-back.
 
 Where the JAX step takes a PRNG key, these take ``offsets``: the
 per-stratum uniforms of the PER sample (``f32[B]`` in ``[0, 1)``), drawn

@@ -6,10 +6,11 @@
 Phases, each of which exits nonzero on failure before any result line:
 
 1. build   -- compile the hand-written CUDA kernels from ``csrc/``.
-2. kernels -- hold each kernel (``gather_rows``, ``gather_stacks``)
-   bit-exact against its plain PyTorch version on the card over every
-   copy path, and time kernel, plain version and the library call (CUDA
-   events, median) at the learner's shapes.
+2. kernels -- hold each kernel (``gather_rows``, ``gather_stacks``,
+   ``tree_update``) bit-exact against its plain PyTorch version on the
+   card over every copy path and caller's geometry, and time kernel,
+   plain version and the library call (CUDA events, median) at the
+   learner's shapes.
 3. reference -- a small learner (42x42 Catch frames, f32, TF32 off) run
    on the card and on the CPU from the same weights, chunks and sample
    uniforms: batches bit-exact, losses and weights within tolerance.
@@ -17,9 +18,10 @@ Phases, each of which exits nonzero on failure before any result line:
    width on ``ApexCatch-v0``: 84x84x1 u8 frames, stack 4, batch 512,
    capacity 2^19, frame ring 2^20, 512-transition / 528-frame chunks
    made by an in-process acting loop.  Ingest until warm, then fused
-   steps; checks losses, priorities, the sum tree, the target sync and
-   that ``gather_stacks`` ran once per step (obs and next_obs together)
-   and ``gather_rows`` not at all.
+   steps; checks losses, priorities, the sum tree, the target sync, that
+   ``gather_stacks`` ran once per step (obs and next_obs together) and
+   ``gather_rows`` not at all, and that ``tree_update`` ran once per
+   chunk ingested and once per step's priority write-back.
 5. train    -- the system as its users run it: ``ApexTrainer.train`` with
    4 spawned actor processes x 8 envs acting on the CPU (32 ladder
    slots, 64-transition chunks) feeding the learner on the card over the
@@ -28,9 +30,10 @@ Phases, each of which exits nonzero on failure before any result line:
    ingest pipeline, then with the serial drain, printed side by side.
    Checks the steps, the ring, the param publishes the actors acted on,
    one ``gather_stacks`` launch per learner step and no ``gather_rows``,
-   finite metrics, the sum tree, that no actor process and no segment
-   outlive ``train()`` and, pipelined, merged warm-up slots and publishes
-   through the staging thread; prints the dispatch counts, learner
+   more ``tree_update`` launches than steps, finite metrics, the sum
+   tree, that no actor process and no segment outlive ``train()`` and,
+   pipelined, merged warm-up slots and publishes through the staging
+   thread; prints the dispatch counts, learner
    steps/s, env frames/s, the actors' phase fractions and peak memory.
    Then, in this process at a worker's thread count, one worker's vector
    family times its serial interleave against a helper-thread overlap of
@@ -264,7 +267,8 @@ Phases, each of which exits nonzero on failure before any result line:
 
 Then it prints the card's name and power limit, one ``{"kernels": ...}``
 line (``launches`` counts each kernel's main path: phase 5's pipelined
-``train()`` for ``gather_stacks``, phase 9's for ``gather_rows``;
+``train()`` for ``gather_stacks`` and ``tree_update``, phase 9's for
+``gather_rows``;
 ``launches_by_path`` adds the serial drain, phase 4's consume path,
 phases 6-9, phase 10's ``anakin_train``, ``anakin_serial`` and
 ``fused_train``, phase 11's ``aql_continuous``, ``aql_pixel``,
@@ -332,6 +336,37 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def zero_launches(gather) -> None:
+    """A path starts: zero the launch counters of the gather and tree
+    kernels (``ops/gather.py``, ``ops/tree.py``)."""
+    from apex_tpu_torch.ops import tree
+    for counts in (gather.LAUNCH_COUNTS, tree.LAUNCH_COUNTS):
+        for name in counts:
+            counts[name] = 0
+
+
+def read_launches(gather) -> dict:
+    """A path ends: each hand-written kernel's launches in this process
+    since :func:`zero_launches`."""
+    from apex_tpu_torch.ops import tree
+    return {**gather.LAUNCH_COUNTS, **tree.LAUNCH_COUNTS}
+
+
+def gather_part(launches: dict) -> dict:
+    """The gather kernels' part of a path's launches."""
+    return {k: launches[k] for k in ("gather_rows", "gather_stacks")}
+
+
+def stats_launches(st: dict) -> dict:
+    """Another process's launches, from its stats record."""
+    return {**st["gather_launches"], **st["tree_launches"]}
+
+
+def summed(counts: list) -> dict:
+    """Launches of several processes (shards, ranks) added up."""
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
 # -- timing ----------------------------------------------------------------
 
 # published device-memory rates (bytes/s) by card name, NVIDIA data sheets
@@ -397,11 +432,13 @@ def parent_gather_rows(root: str, gather):
     entry point), built beside this one's library."""
     import ctypes
 
-    lib_path = os.path.join(gather.BUILD_DIR, "libapex_gather_parent.so")
-    os.makedirs(gather.BUILD_DIR, exist_ok=True)
-    subprocess.run([gather._nvcc(), *gather.NVCC_FLAGS, "-o", lib_path,
-                    os.path.join(root, "apex_tpu_torch", "ops", "csrc",
-                                 "gather.cu")],
+    from apex_tpu_torch.ops import cuda_build
+
+    lib_path = os.path.join(cuda_build.BUILD_DIR, "libapex_gather_parent.so")
+    os.makedirs(cuda_build.BUILD_DIR, exist_ok=True)
+    subprocess.run([cuda_build.nvcc(), *cuda_build.NVCC_FLAGS, "-o",
+                    lib_path, os.path.join(root, "apex_tpu_torch", "ops",
+                                           "csrc", "gather.cu")],
                    check=True, capture_output=True, text=True)
     entry = ctypes.CDLL(lib_path).apex_gather_rows
     entry.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 3 + [
@@ -580,7 +617,140 @@ def kernel_phase(dev, gather, card: str,
                  **common),
             dict(name="gather_stacks", max_abs_err=stacks_err,
                  ms=st["kernel"], plain_ms=st["plain"], bound_ms=st["bound"],
-                 library_ms=st["library"], **common)]
+                 library_ms=st["library"], **common),
+            tree_row(dev, rate)]
+
+
+def tree_row(dev, rate: float) -> dict:
+    """``apex_tree_update`` (``ops/tree.py`` on card trees, one launch)
+    held bit-exact against ``tree.update_plain`` (the CPU path's loop run
+    on the same card tensors) at the callers' geometries, then timed
+    against it on both trees at capacity 2^16: K = 512 sampled leaves with
+    repeats (the learner's priority write-back) and K = 64 consecutive
+    ones (an ingest).  The loop's ~260 launches are queued 3 updates at a
+    time behind the sleep kernel, so its time is device time too; the
+    host ms of each is a synchronised run of 50 updates.  The bytes bound
+    reads the indices and leaves once and writes each distinct node of
+    both trees once; the kernel is bound by its 17 dependent levels."""
+    from apex_tpu_torch.ops import tree
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 18)
+
+    def filled(capacity: int):
+        s = tree.init_sum_tree(capacity, dev)
+        m = tree.init_min_tree(capacity, dev)
+        idx = torch.arange(capacity, device=dev)
+        v = torch.rand(capacity, device=dev, generator=g) * 4
+        return (tree.update_plain(s, idx, v, torch.add),
+                tree.update_plain(m, idx, v, torch.minimum))
+
+    def leaves(capacity: int, k: int, ingest: bool = False, pad: int = 0,
+               dtype=torch.int64):
+        """``k`` consecutive slots from a random start, the last ``pad``
+        clamped to repeat the one before (an ingest, padded as SeqPool's
+        chunks are), or ``k`` sampled slots with repeats (a write-back);
+        values agree wherever indices do."""
+        if ingest:
+            start = torch.randint(0, capacity, (1,), device=dev, generator=g)
+            idx = (start + torch.arange(k, device=dev).clamp_max(
+                k - 1 - pad)) % capacity
+        else:
+            idx = torch.randint(0, capacity, (k,), device=dev, generator=g)
+        table = torch.rand(capacity, device=dev, generator=g) + 0.01
+        return idx.to(dtype), table[idx]
+
+    def plain(which, s, m, idx, v):
+        if which != "min":
+            tree.update_plain(s, idx, v, torch.add)
+        if which != "sum":
+            tree.update_plain(m, idx, v, torch.minimum)
+
+    def kernel(which, s, m, idx, v):
+        {"both": lambda: tree.update_both(s, m, idx, v),
+         "sum": lambda: tree.update_sum(s, idx, v),
+         "min": lambda: tree.update_min(m, idx, v)}[which]()
+
+    def on_copies(update):
+        def run(which, s, m, idx, v):
+            s, m = s.clone(), m.clone()
+            update(which, s, m, idx, v)
+            return torch.cat([s, m])
+        return run
+
+    t16, t19 = filled(2 ** 16), filled(2 ** 19)
+    err = _exact("tree_update", [
+        ("C=2^16 K=512 sampled with repeats (write-back)", "both", *t16,
+         *leaves(2 ** 16, 512)),
+        ("C=2^16 K=64 consecutive (ingest)", "both", *t16,
+         *leaves(2 ** 16, 64, ingest=True)),
+        ("C=2^19 K=512 (the smoke's DQN learner, a replay shard)", "both",
+         *t19, *leaves(2 ** 19, 512)),
+        ("C=2^19 K=64 consecutive", "both", *t19,
+         *leaves(2 ** 19, 64, ingest=True)),
+        ("C=2^16 K=32, the last 12 clamped to repeat (R2D2's padded "
+         "sequences)", "both", *t16,
+         *leaves(2 ** 16, 32, ingest=True, pad=12)),
+        ("C=2^16 K=256 (a dp rank's half of the batch)", "both", *t16,
+         *leaves(2 ** 16, 256)),
+        ("C=2^16 K=512 int32 indices", "both", *t16,
+         *leaves(2 ** 16, 512, dtype=torch.int32)),
+        ("C=2^16 K=2049 (grid-stride past one block)", "both", *t16,
+         *leaves(2 ** 16, 2049)),
+        ("C=2^16 K=512 update_sum alone", "sum", *t16,
+         *leaves(2 ** 16, 512)),
+        ("C=2^16 K=512 update_min alone", "min", *t16,
+         *leaves(2 ** 16, 512)),
+    ], on_copies(kernel), on_copies(plain))
+    del t19
+
+    def nodes(idx, capacity: int) -> int:
+        leaf = idx.long() + capacity
+        return int(torch.cat([leaf >> level for level in range(
+            capacity.bit_length())]).unique().numel())
+
+    def host_ms(fn) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(50):
+            fn(i % 33)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / 50 * 1e3
+
+    out = {}
+    for k, ingest in ((512, False), (64, True)):
+        sets = [leaves(2 ** 16, k, ingest) for _ in range(33)]
+
+        def run_kernel(i):
+            kernel("both", *t16, *sets[i])
+
+        def run_plain(i):
+            plain("both", *t16, *sets[i])
+        res = time_ms({"kernel": run_kernel})
+        res |= time_ms({"plain": run_plain}, iters=3, warmup=1)
+        res["host"] = host_ms(run_kernel)
+        res["plain_host"] = host_ms(run_plain)
+        idx = sets[0][0]
+        moved = k * (idx.element_size() + 4) + 2 * 4 * nodes(idx, 2 ** 16)
+        res["bound"] = moved / rate * 1e3
+        out[k] = res
+        what = "ingest" if ingest else "write-back"
+        log(f"tree_update C=2^16 K={k} ({what}), both trees: kernel "
+            f"{res['kernel']:.6f} ms device, "
+            f"{res['host']:.6f} ms host; plain loop {res['plain']:.6f} ms "
+            f"device, {res['plain_host']:.6f} ms host; bound "
+            f"{res['bound']:.6f} ms ({moved} B at {rate:.3g} B/s)")
+    del t16
+    torch.cuda.empty_cache()
+    w, i = out[512], out[64]
+    return dict(name="tree_update", max_abs_err=err, ms=w["kernel"],
+                plain_ms=w["plain"], bound_ms=w["bound"], host_ms=w["host"],
+                plain_host_ms=w["plain_host"],
+                at_k64=dict(ms=i["kernel"], plain_ms=i["plain"],
+                            bound_ms=i["bound"], host_ms=i["host"],
+                            plain_host_ms=i["plain_host"]),
+                route="cuda", source="apex_tpu_torch/ops/csrc/tree.cu",
+                replaces="none (apex_tpu/ops/tree.py is jnp)",
+                bound_by="latency")
 
 
 # -- chunk streams ---------------------------------------------------------
@@ -780,8 +950,7 @@ def slice_phase(dev, gather, profile_dir: str | None = None) -> dict:
 
     ts = trainer.train_state
     step_ms, synced = [], 0
-    for name in gather.LAUNCH_COUNTS:                 # main path starts
-        gather.LAUNCH_COUNTS[name] = 0
+    zero_launches(gather)                             # main path starts
     for msg in msgs:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -798,13 +967,18 @@ def slice_phase(dev, gather, profile_dir: str | None = None) -> dict:
                             ts.target_params.parameters()):
                 check(torch.equal(p, t), "slice: target != online after sync")
             synced += 1
-    launches = dict(gather.LAUNCH_COUNTS)             # main path ends
+    launches = read_launches(gather)                  # main path ends
 
     check(trainer.steps == TRAIN_STEPS == ts.step,
           f"slice: {trainer.steps} fused steps, train state at {ts.step}")
-    check(launches == {"gather_rows": 0, "gather_stacks": TRAIN_STEPS},
+    check(gather_part(launches) == {"gather_rows": 0,
+                                    "gather_stacks": TRAIN_STEPS},
           f"slice: gather launches {launches} in {TRAIN_STEPS} steps (want "
           f"one gather_stacks per step and no gather_rows)")
+    check(launches["tree_update"] == len(msgs) + TRAIN_STEPS,
+          f"slice: tree launches {launches} for {len(msgs)} chunks and "
+          f"{TRAIN_STEPS} steps (want one per ingest, one per priority "
+          f"write-back)")
     check(synced == TRAIN_STEPS // TARGET_INTERVAL,
           f"slice: {synced} target syncs")
     rs = trainer.replay_state
@@ -868,14 +1042,13 @@ def train_phase(dev, gather, pipelined: bool) -> dict:
         f"transitions, warm-up {TRAIN_WARMUP}, batch {BATCH}, capacity "
         f"{CAPACITY}, ring {trainer.replay.f_capacity} rows, ingest "
         f"pipeline {cfg.learner.ingest_pipeline}")
-    for name in gather.LAUNCH_COUNTS:                 # main path starts
-        gather.LAUNCH_COUNTS[name] = 0
+    zero_launches(gather)                             # main path starts
     t0 = time.perf_counter()
     trainer.train(total_steps=LOOP_STEPS, max_seconds=LOOP_SECONDS,
                   log_every=25)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(gather.LAUNCH_COUNTS)             # main path ends
+    launches = read_launches(gather)                  # main path ends
 
     check(trainer.steps == LOOP_STEPS,
           f"{what}: {trainer.steps} learner steps in {wall:.1f} s, want "
@@ -888,8 +1061,12 @@ def train_phase(dev, gather, pipelined: bool) -> dict:
                 trainer.log.history.get("learner/episode_param_version", [])]
     check(bool(versions) and min(versions) > 0,
           f"{what}: episode stats' param versions {versions[:8]}")
-    check(launches == {"gather_rows": 0, "gather_stacks": trainer.steps},
+    check(gather_part(launches) == {"gather_rows": 0,
+                                    "gather_stacks": trainer.steps},
           f"{what}: gather launches {launches} in {trainer.steps} steps")
+    check(launches["tree_update"] > trainer.steps,
+          f"{what}: tree launches {launches} in {trainer.steps} steps (want "
+          f"one per priority write-back and more for the ingests)")
     stats = trainer._pipeline_last_stats
     if pipelined:
         # the warm-up's 64 ingest-only chunks merge; publishes ride the
@@ -1151,19 +1328,18 @@ def pipeline_phase(dev, gather, msgs: list) -> dict:
             object.__setattr__(trainer.core, "fused_step", timed)
             staging.clear()
             copies.clear()
-            for key in gather.LAUNCH_COUNTS:          # this path starts
-                gather.LAUNCH_COUNTS[key] = 0
+            zero_launches(gather)                     # this path starts
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             trainer.train(total_steps=TRAIN_STEPS, max_seconds=60.0)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            launches = dict(gather.LAUNCH_COUNTS)     # this path ends
+            launches = read_launches(gather)          # this path ends
             check(trainer.steps == TRAIN_STEPS == len(starts),
                   f"pipeline {name}: {trainer.steps} steps, "
                   f"{len(starts)} fused")
-            check(launches == {"gather_rows": 0,
-                               "gather_stacks": TRAIN_STEPS},
+            check(gather_part(launches) == {"gather_rows": 0,
+                                            "gather_stacks": TRAIN_STEPS},
                   f"pipeline {name}: gather launches {launches}")
             ms = (starts[-1] - starts[2]) / (len(starts) - 3) * 1e3
             stage = ""
@@ -1263,8 +1439,7 @@ def checkpoint_phase(dev, gather, msgs: list) -> dict:
 
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
-    for key in gather.LAUNCH_COUNTS:                  # this path starts
-        gather.LAUNCH_COUNTS[key] = 0
+    zero_launches(gather)                             # this path starts
     try:
         with tempfile.TemporaryDirectory(prefix="apex-ckpt-") as tmp:
             cfg = _full_width_cfg(True, CHECKPOINT_CAPACITY)
@@ -1293,7 +1468,7 @@ def checkpoint_phase(dev, gather, msgs: list) -> dict:
             score = evaluate_checkpoint(path, episodes=2, max_steps=500,
                                         device=dev)
             check(math.isfinite(score), f"checkpoint: eval score {score}")
-        launches = dict(gather.LAUNCH_COUNTS)         # this path ends
+        launches = read_launches(gather)              # this path ends
         check(launches["gather_stacks"] == 12 and launches["gather_rows"] == 0,
               f"checkpoint: gather launches {launches}")
     finally:
@@ -1328,8 +1503,7 @@ def dqn_phase(gather) -> dict:
                                    frame_stack=1),
                      replay=ReplayConfig(warmup=512),
                      learner=LearnerConfig(save_interval=100))
-    for key in gather.LAUNCH_COUNTS:                  # this path starts
-        gather.LAUNCH_COUNTS[key] = 0
+    zero_launches(gather)                             # this path starts
     with tempfile.TemporaryDirectory(prefix="apex-dqn-") as tmp:
         trainer = DQNTrainer(cfg, train_every=4, checkpoint_dir=tmp)
         torch.cuda.synchronize()
@@ -1338,7 +1512,7 @@ def dqn_phase(gather) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         saved = sorted(os.listdir(tmp))
-    launches = dict(gather.LAUNCH_COUNTS)             # this path ends
+    launches = read_launches(gather)                  # this path ends
     steps = trainer.steps_rate.total
     check(trainer.frames_rate.total == DQN_FRAMES and steps > 0,
           f"dqn: {trainer.frames_rate.total} frames, {steps} steps")
@@ -1352,7 +1526,7 @@ def dqn_phase(gather) -> dict:
         n_logged += len(values)
     want = [f"ckpt_{k}.pt" for k in range(100, steps + 1, 100)][-3:]
     check(saved == sorted(want), f"dqn: checkpoints {saved}, want {want}")
-    check(launches == {"gather_rows": 0, "gather_stacks": 0},
+    check(gather_part(launches) == {"gather_rows": 0, "gather_stacks": 0},
           f"dqn: gather launches {launches} (the stacked replay indexes)")
     episodes = [v for _, v in trainer.log.history.get(
         "learner/episode_reward", [])]
@@ -1541,15 +1715,14 @@ def r2d2_train_phase(dev, gather, profile_dir: str | None = None) -> dict:
         return ingest(rs, payload, prios)
 
     object.__setattr__(core, "ingest", counted_ingest)
-    for name in gather.LAUNCH_COUNTS:                 # main path starts
-        gather.LAUNCH_COUNTS[name] = 0
+    zero_launches(gather)                             # main path starts
     with _RowsSeen() as seen:
         t0 = time.perf_counter()
         trainer.train(total_steps=R2D2_STEPS, max_seconds=R2D2_SECONDS,
                       log_every=10)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    launches = dict(gather.LAUNCH_COUNTS)             # main path ends
+    launches = read_launches(gather)                  # main path ends
     object.__setattr__(core, "ingest", ingest)
     # train()'s own counts, before the timed and profiled steps below
     steps, dispatches = trainer.steps, dict(trainer.dispatches)
@@ -1559,7 +1732,8 @@ def r2d2_train_phase(dev, gather, profile_dir: str | None = None) -> dict:
     check(trainer.steps == R2D2_STEPS == trainer.train_state.step,
           f"{what}: {trainer.steps} learner steps in {wall:.1f} s, want "
           f"{R2D2_STEPS} within {R2D2_SECONDS} s")
-    check(launches == {"gather_rows": trainer.steps, "gather_stacks": 0},
+    check(gather_part(launches) == {"gather_rows": trainer.steps,
+                                    "gather_stacks": 0},
           f"{what}: gather launches {launches} in {trainer.steps} steps "
           f"(want one gather_rows per step and no gather_stacks)")
     check(seen.rows == [R2D2_ROWS] * trainer.steps,
@@ -1647,8 +1821,7 @@ def r2d2_single_phase(dev, gather) -> dict:
 
     what = "r2d2 single"
     trainer = R2D2Trainer(_r2d2_cfg(), train_every=4)          # on "cuda"
-    for key in gather.LAUNCH_COUNTS:                  # this path starts
-        gather.LAUNCH_COUNTS[key] = 0
+    zero_launches(gather)                             # this path starts
     with _RowsSeen() as seen:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1656,12 +1829,12 @@ def r2d2_single_phase(dev, gather) -> dict:
                       warmup_sequences=R2D2_WARMUP_SEQS)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    launches = dict(gather.LAUNCH_COUNTS)             # this path ends
+    launches = read_launches(gather)                  # this path ends
     steps = trainer.steps_rate.total
     check(trainer.frames_rate.total == R2D2_FRAMES and steps > 0
           and trainer.train_state.step == steps,
           f"{what}: {trainer.frames_rate.total} frames, {steps} updates")
-    check(launches == {"gather_rows": steps, "gather_stacks": 0}
+    check(gather_part(launches) == {"gather_rows": steps, "gather_stacks": 0}
           and seen.rows == [R2D2_ROWS] * steps,
           f"{what}: gather launches {launches} in {steps} updates, rows "
           f"{sorted(set(seen.rows))}")
@@ -1991,18 +2164,18 @@ def anakin_train_phase(dev, gather, pipelined: bool) -> dict:
         return got
 
     engine.rollout = timed_rollout
-    for name in gather.LAUNCH_COUNTS:                 # this path starts
-        gather.LAUNCH_COUNTS[name] = 0
+    zero_launches(gather)                             # this path starts
     t0 = time.perf_counter()
     trainer.train(total_steps=LOOP_STEPS, max_seconds=LOOP_SECONDS,
                   log_every=25)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(gather.LAUNCH_COUNTS)             # this path ends
+    launches = read_launches(gather)                  # this path ends
 
     check(trainer.steps == LOOP_STEPS,
           f"{what}: {trainer.steps} learner steps in {wall:.1f} s")
-    check(launches == {"gather_rows": 0, "gather_stacks": trainer.steps},
+    check(gather_part(launches) == {"gather_rows": 0,
+                                    "gather_stacks": trainer.steps},
           f"{what}: gather launches {launches} in {trainer.steps} steps")
     check(trainer.param_version >= 2 and pool._acting_version >= 2,
           f"{what}: {trainer.param_version} publishes, the engine acted "
@@ -2054,18 +2227,17 @@ def fused_train_phase(dev, gather) -> dict:
                                steps_per_dispatch=ONDEVICE_N,
                                train_per_step=1)     # on "cuda"
     fused = trainer.fused
-    for name in gather.LAUNCH_COUNTS:                 # this path starts
-        gather.LAUNCH_COUNTS[name] = 0
+    zero_launches(gather)                             # this path starts
     t0 = time.perf_counter()
     trainer.train(total_steps=FUSED_STEPS, max_seconds=LOOP_SECONDS,
                   log_every=max(1, FUSED_STEPS // 4))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(gather.LAUNCH_COUNTS)             # this path ends
+    launches = read_launches(gather)                  # this path ends
     steps = trainer.steps
     check(FUSED_STEPS <= steps < FUSED_STEPS + ONDEVICE_N,
           f"{what}: {steps} learner steps in {wall:.1f} s")
-    check(launches == {"gather_rows": 0, "gather_stacks": steps},
+    check(gather_part(launches) == {"gather_rows": 0, "gather_stacks": steps},
           f"{what}: gather launches {launches} in {steps} steps")
     check(fused.prio_writebacks == fused.train_steps == steps,
           f"{what}: {fused.prio_writebacks} write-backs, "
@@ -2496,14 +2668,13 @@ def aql_train_phase(dev, gather, env_id: str,
         return ingest(rs, payload, prios)
 
     object.__setattr__(core, "ingest", keeping_ingest)
-    for name in gather.LAUNCH_COUNTS:                 # main path starts
-        gather.LAUNCH_COUNTS[name] = 0
+    zero_launches(gather)                             # main path starts
     t0 = time.perf_counter()
     trainer.train(total_steps=AQL_STEPS, max_seconds=AQL_SECONDS,
                   log_every=10)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(gather.LAUNCH_COUNTS)             # main path ends
+    launches = read_launches(gather)                  # main path ends
     object.__setattr__(core, "ingest", ingest)
     steps, dispatches = trainer.steps, dict(trainer.dispatches)
     rate, ingested = trainer.steps_rate.rate, trainer.ingested
@@ -2513,7 +2684,7 @@ def aql_train_phase(dev, gather, env_id: str,
           f"{what}: {steps} learner steps in {wall:.1f} s, want "
           f"{AQL_STEPS} within {AQL_SECONDS} s")
     want = {"gather_rows": 0, "gather_stacks": steps if pixels else 0}
-    check(launches == want,
+    check(gather_part(launches) == want,
           f"{what}: gather launches {launches} in {steps} steps, want "
           f"{want}")
     check(pool.chunk_plane == "shm",
@@ -2613,20 +2784,19 @@ def aql_single_phase(dev, gather) -> dict:
     what = "aql single"
     cfg = _aql_cfg("ApexContinuousNav-v0", warmup=AQL_SINGLE_WARMUP)
     trainer = AQLTrainer(cfg, train_every=4)                  # on "cuda"
-    for key in gather.LAUNCH_COUNTS:                  # this path starts
-        gather.LAUNCH_COUNTS[key] = 0
+    zero_launches(gather)                             # this path starts
     frames = AQL_SINGLE_WARMUP + AQL_FRAMES
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     trainer.train(total_frames=frames, log_every=10)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(gather.LAUNCH_COUNTS)             # this path ends
+    launches = read_launches(gather)                  # this path ends
     steps = trainer.steps_rate.total
     check(trainer.frames_rate.total == frames and steps > 0
           and trainer.train_state.step == steps,
           f"{what}: {trainer.frames_rate.total} frames, {steps} updates")
-    check(launches == {"gather_rows": 0, "gather_stacks": 0},
+    check(gather_part(launches) == {"gather_rows": 0, "gather_stacks": 0},
           f"{what}: gather launches {launches} (the stacked replay)")
     n_logged = _finite_logged(trainer, ("loss_proposal",))
     check(n_logged > 0, f"{what}: no learner metrics logged")
@@ -2661,8 +2831,7 @@ def aql_checkpoint_phase(dev, gather, msgs: list) -> dict:
     check(len(msgs) >= warm + 8, f"{what}: {len(msgs)} messages kept")
     cfg = _aql_cfg("ApexCatch-v0", capacity=AQL_CHECKPOINT_CAPACITY,
                    warmup=warm * SEND_INTERVAL)
-    for key in gather.LAUNCH_COUNTS:                  # this path starts
-        gather.LAUNCH_COUNTS[key] = 0
+    zero_launches(gather)                             # this path starts
     with tempfile.TemporaryDirectory(prefix="apex-aql-ckpt-") as tmp:
         t1 = AQLApexTrainer(cfg, pool=ListPool([]), device=dev,
                             checkpoint_dir=tmp)
@@ -2689,8 +2858,8 @@ def aql_checkpoint_phase(dev, gather, msgs: list) -> dict:
         score = evaluate_checkpoint(path, episodes=1, max_steps=500,
                                     device=dev)
         check(math.isfinite(score), f"{what}: eval score {score}")
-    launches = dict(gather.LAUNCH_COUNTS)             # this path ends
-    check(launches == {"gather_rows": 0, "gather_stacks": 12},
+    launches = read_launches(gather)                  # this path ends
+    check(gather_part(launches) == {"gather_rows": 0, "gather_stacks": 12},
           f"{what}: gather launches {launches}")
     log(f"{what}: capacity {AQL_CHECKPOINT_CAPACITY}, ring "
         f"{t1.replay.f_capacity} rows + a_mu sidecar "
@@ -2933,8 +3102,7 @@ def role_run(dev, gather, what: str, n_actors: int, steps: int,
             f"{SEND_INTERVAL}, warm-up {TRAIN_WARMUP}, batch {BATCH}, "
             f"capacity {CAPACITY}, ports {ports}, wire codec "
             f"{'dict' if codec else 'raw'}, param deltas {codec}")
-        for name in gather.LAUNCH_COUNTS:             # main path starts
-            gather.LAUNCH_COUNTS[name] = 0
+        zero_launches(gather)                         # main path starts
         t0 = time.perf_counter()
         try:
             trainer = run_learner(cfg, n_peers=n_actors + 1,
@@ -2948,7 +3116,7 @@ def role_run(dev, gather, what: str, n_actors: int, steps: int,
             raise
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = dict(gather.LAUNCH_COUNTS)         # main path ends
+        launches = read_launches(gather)              # main path ends
         dead = roles.dead()
         codes = roles.stop()
         if dead or any(c != 0 for c in codes.values()):
@@ -2969,7 +3137,8 @@ def role_run(dev, gather, what: str, n_actors: int, steps: int,
     check(trainer.steps == steps,
           f"{what}: {trainer.steps} learner steps in {wall:.1f} s, want "
           f"{steps} within {ROLE_SECONDS} s")
-    check(launches == {"gather_rows": 0, "gather_stacks": trainer.steps},
+    check(gather_part(launches) == {"gather_rows": 0,
+                                    "gather_stacks": trainer.steps},
           f"{what}: gather launches {launches} in {trainer.steps} steps")
     check(trainer.param_version >= 2,
           f"{what}: {trainer.param_version} param publishes")
@@ -3198,8 +3367,7 @@ def _learner_run(dev, gather, roles, what: str, cfg, **kw):
     it raises.  Returns ``(trainer, wall, launches)``."""
     from apex_tpu_torch.runtime.roles import run_learner
 
-    for name in gather.LAUNCH_COUNTS:             # the path starts
-        gather.LAUNCH_COUNTS[name] = 0
+    zero_launches(gather)                             # the path starts
     t0 = time.perf_counter()
     try:
         trainer = run_learner(cfg, max_seconds=SERVICE_SECONDS,
@@ -3211,7 +3379,7 @@ def _learner_run(dev, gather, roles, what: str, cfg, **kw):
         raise
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    return trainer, wall, dict(gather.LAUNCH_COUNTS)   # the path ends
+    return trainer, wall, read_launches(gather)       # the path ends
 
 
 def _wire(trainer) -> str:
@@ -3366,7 +3534,7 @@ def replay_service_run(dev, gather, p12a: dict) -> dict:
     local = trainer.steps - trainer.service_steps
     check(trainer.service_steps > 0,
           f"{what}: no step trained on a service batch")
-    check(launches == {"gather_rows": 0, "gather_stacks": local},
+    check(gather_part(launches) == {"gather_rows": 0, "gather_stacks": local},
           f"{what}: the learner's gather launches {launches} with {local} "
           f"local fallback steps")
     presample = cfg.comms.replay_presample
@@ -3422,8 +3590,7 @@ def replay_service_run(dev, gather, p12a: dict) -> dict:
         f"{p12a['peak'] / 2**30:.3f}), shards "
         f"{[round(st['peak_bytes'] / 2**30, 3) for st in shards]} GiB; "
         f"learner gather launches {launches}")
-    shard_launches = sum(st["gather_launches"]["gather_stacks"]
-                         for st in shards)
+    shard_launches = summed([stats_launches(st) for st in shards])
     RATES[what] = trainer.steps_rate.rate
     return dict(launches=launches, shard_launches=shard_launches)
 
@@ -3463,7 +3630,8 @@ def remote_policy_run(dev, gather, p12a: dict) -> dict:
     check(server is not None, f"{what}: the infer server printed no stats")
     check(trainer.steps == SERVICE_STEPS,
           f"{what}: {trainer.steps} learner steps in {wall:.1f} s")
-    check(launches == {"gather_rows": 0, "gather_stacks": trainer.steps},
+    check(gather_part(launches) == {"gather_rows": 0,
+                                    "gather_stacks": trainer.steps},
           f"{what}: gather launches {launches} in {trainer.steps} steps")
     beats = _beats(trainer)
     gauges = [beats[f"actor-{i}"].gauges for i in range(N_ACTORS)
@@ -3543,7 +3711,8 @@ def loadgen_run(dev, gather) -> dict:
           and trainer.ingested > 0,
           f"{what}: {trainer.steps} steps, wire {summary}, "
           f"{trainer.ingested} ingested")
-    check(launches == {"gather_rows": 0, "gather_stacks": trainer.steps},
+    check(gather_part(launches) == {"gather_rows": 0,
+                                    "gather_stacks": trainer.steps},
           f"{what}: gather launches {launches} in {trainer.steps} steps")
     check("loadgen-0" in _beats(trainer),
           f"{what}: heartbeats from {sorted(_beats(trainer))}")
@@ -3606,7 +3775,8 @@ def socket_rollout_run(dev, gather, rollout: str) -> dict:
     check(trainer.steps >= SOCKET_STEPS and evaluated > 0,
           f"{what}: {trainer.steps} steps and {evaluated} evaluator "
           f"episodes in {wall:.1f} s")
-    check(launches == {"gather_rows": 0, "gather_stacks": trainer.steps},
+    check(gather_part(launches) == {"gather_rows": 0,
+                                    "gather_stacks": trainer.steps},
           f"{what}: gather launches {launches} in {trainer.steps} steps")
     check(any(k.startswith("evaluator-") for k in _beats(trainer)),
           f"{what}: heartbeats from {sorted(_beats(trainer))}")
@@ -3644,8 +3814,7 @@ def service_phase(dev, gather, p12a: dict) -> dict:
     log("services: phase 13 seconds: " + ", ".join(
         f"{n} {b - a:.1f}" for n, a, b in zip(names, t, t[1:])))
     return {"replay_service": shards["launches"],
-            "replay_service_shards": {
-                "gather_rows": 0, "gather_stacks": shards["shard_launches"]},
+            "replay_service_shards": shards["shard_launches"],
             "remote_policy": remote["launches"],
             "loadgen": gen["launches"],
             "ondevice_socket": ondevice["launches"],
@@ -3713,12 +3882,11 @@ def fleet_spans_ref_phase(dev, gather, msgs: list) -> dict:
             trainer = ApexTrainer(_full_width_cfg(True),
                                   pool=ListPool(batch), device=dev,
                                   respawn_workers=False)
-            for key in gather.LAUNCH_COUNTS:          # this path starts
-                gather.LAUNCH_COUNTS[key] = 0
+            zero_launches(gather)                     # this path starts
             trainer.train(total_steps=TRAIN_STEPS, max_seconds=60.0)
             torch.cuda.synchronize()
-            launches = dict(gather.LAUNCH_COUNTS)     # this path ends
-            check(trainer.steps == TRAIN_STEPS and launches == {
+            launches = read_launches(gather)          # this path ends
+            check(trainer.steps == TRAIN_STEPS and gather_part(launches) == {
                 "gather_rows": 0, "gather_stacks": TRAIN_STEPS},
                 f"fleet_spans: {trainer.steps} steps, launches {launches}")
             runs[on] = (trainer, launches)
@@ -3963,7 +4131,8 @@ def fleet_chaos_run(dev, gather) -> dict:
     families = ("apex_fleet_", "apex_slo_", "apex_learner_steps_per_sec")
     check(rc == 0 and all(k in text for k in families),
           f"{what}: --role status --metrics exit {rc}:\n{text[:3000]}")
-    check(launches == {"gather_rows": 0, "gather_stacks": trainer.steps},
+    check(gather_part(launches) == {"gather_rows": 0,
+                                    "gather_stacks": trainer.steps},
           f"{what}: gather launches {launches} in {trainer.steps} steps")
     _tree_sums(trainer, what)
     check(_finite_logged(trainer) > 0, f"{what}: no learner metrics logged")
@@ -4032,7 +4201,7 @@ def fleet_trace_run(dev, gather, spans: bool) -> dict:
         roles.close()
     bound = _still_bound(ports)
     check(not bound, f"{what}: ports {bound} still bound after the run")
-    check(trainer.steps == ROLE_STEPS and launches == {
+    check(trainer.steps == ROLE_STEPS and gather_part(launches) == {
         "gather_rows": 0, "gather_stacks": trainer.steps},
         f"{what}: {trainer.steps} steps, gather launches {launches}")
     lat = trainer.latency_summary()
@@ -4140,7 +4309,7 @@ def fleet_shards_run(dev, gather) -> dict:
           and trainer.service_steps > 0,
           f"{what}: {trainer.steps} steps ({trainer.service_steps} on shard "
           f"batches), client skew {client.epoch_skew}")
-    check(launches == {"gather_rows": 0, "gather_stacks": local},
+    check(gather_part(launches) == {"gather_rows": 0, "gather_stacks": local},
           f"{what}: the learner's gather launches {launches} with {local} "
           f"local fallback steps")
     for s, st in enumerate(shards):
@@ -4165,8 +4334,7 @@ def fleet_shards_run(dev, gather) -> dict:
                     f"forgiven, root {st['tree_root']:.6g}"
                     f" = leaves {st['tree_leaves']:.6g}"
                     for s, st in enumerate(shards)))
-    shard_launches = sum(st["gather_launches"]["gather_stacks"]
-                         for st in shards)
+    shard_launches = summed([stats_launches(st) for st in shards])
     return dict(launches=launches, shard_launches=shard_launches)
 
 
@@ -4190,8 +4358,7 @@ def fleet_profile_run(dev, gather) -> dict:
         for i in range(N_ACTORS):
             roles.launch(f"actor-{i}", ["--role", "actor", *shared],
                          _actor_env(i))
-        for key in gather.LAUNCH_COUNTS:              # the path starts
-            gather.LAUNCH_COUNTS[key] = 0
+        zero_launches(gather)                         # the path starts
         t0 = time.perf_counter()
         rc = cli.main(["--role", "learner", *shared, "--n-actors",
                        str(N_ACTORS), "--n-evaluators", "0",
@@ -4201,7 +4368,7 @@ def fleet_profile_run(dev, gather) -> dict:
                        *_device_flag(dev)])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = dict(gather.LAUNCH_COUNTS)         # the path ends
+        launches = read_launches(gather)              # the path ends
         _stop_roles(roles, what)
     finally:
         roles.close()
@@ -4219,7 +4386,8 @@ def fleet_profile_run(dev, gather) -> dict:
                                                 "stacks_reg_kernel",
                                                 "rows_reg_kernel"))]
     check(steps == PROFILE_LEARNER_STEPS
-          and launches == {"gather_rows": 0, "gather_stacks": steps}
+          and gather_part(launches) == {"gather_rows": 0,
+                                        "gather_stacks": steps}
           and (len(gathers) == steps or dev.type == "cpu"),
           f"{what}: {steps} steps, launches {launches}, gather kernels in "
           f"the trace {len(gathers)} of {len(kernels)} kernel events")
@@ -4263,8 +4431,7 @@ def fleet_phase(dev, gather, msgs: list, p12a: dict) -> dict:
             "fleet_trace": traced["launches"],
             "fleet_trace_nospans": plain["launches"],
             "fleet_shards": shards["launches"],
-            "fleet_shards_shards": {"gather_rows": 0,
-                                    "gather_stacks": shards["shard_launches"]},
+            "fleet_shards_shards": shards["shard_launches"],
             "fleet_profile": prof["launches"]}
 
 
@@ -4657,7 +4824,8 @@ def serve_ctl_run(dev, gather) -> dict:
           f"{snap['incumbent']}), its stats {servers[0]}")
     check(all(st is not None and st["rejected"] == 0 for st in servers),
           f"{what}: infer stats {servers}")
-    check(launches == {"gather_rows": 0, "gather_stacks": trainer.steps},
+    check(gather_part(launches) == {"gather_rows": 0,
+                                    "gather_stacks": trainer.steps},
           f"{what}: gather launches {launches} in {trainer.steps} steps")
     check(_finite_logged(trainer) > 0, f"{what}: no learner metrics logged")
     _tree_sums(trainer, what)
@@ -4895,14 +5063,13 @@ def tenant_ctl_run(dev, gather) -> dict:
     check(final is not None and final["tenants"]["rally"]["state"]
           == "EVICTED", f"{what}: tenant-ctl's snapshot {final}")
     local = trainer.steps - trainer.service_steps
-    check(launches == {"gather_rows": 0, "gather_stacks": local},
+    check(gather_part(launches) == {"gather_rows": 0, "gather_stacks": local},
           f"{what}: the learner's gather launches {launches} with {local} "
           f"local steps")
     check(trainer.service_steps > 0 and _finite_logged(trainer) > 0,
           f"{what}: {trainer.service_steps} service steps")
     kill_to_evict = state["evicted_at"] - state["killed_at"]
-    shard_launches = sum(st["gather_launches"]["gather_stacks"]
-                         for st in shards)
+    shard_launches = summed([stats_launches(st) for st in shards])
     log(f"{what}: t0 {trainer.steps} learner steps in {wall:.3f} s "
         f"({trainer.service_steps} on shard batches, "
         f"{state['steps'] - state['steps_at_evict']} after rally's "
@@ -5098,7 +5265,8 @@ def pbt_ctl_run(dev, gather) -> dict:
     check(final is not None and final["exploits"] >= 1
           and final["lineages"]["lb"]["parent"] == "la",
           f"{what}: pbt-ctl's snapshot {final}")
-    check(launches == {"gather_rows": 0, "gather_stacks": trainer.steps},
+    check(gather_part(launches) == {"gather_rows": 0,
+                                    "gather_stacks": trainer.steps},
           f"{what}: gather launches {launches} in {trainer.steps} steps")
     check(_finite_logged(trainer) > 0, f"{what}: no learner metrics logged")
     _tree_sums(trainer, what)
@@ -5130,8 +5298,7 @@ def control_phase(dev, gather, msgs: list) -> dict:
         f"{n} {b - a:.1f}" for n, a, b in zip(names, t, t[1:])))
     return {"ctl_serve": serve["launches"],
             "ctl_tenant": tenant["launches"],
-            "ctl_tenant_shards": {"gather_rows": 0,
-                                  "gather_stacks": tenant["shard_launches"]},
+            "ctl_tenant_shards": tenant["shard_launches"],
             "ctl_pbt": pbt["launches"]}
 
 
@@ -5313,9 +5480,8 @@ def launch_run(dev) -> dict:
         + f"; merged trace {len(events)} events; no process left, no port "
         f"bound")
     shutil.rmtree(tmp, ignore_errors=True)
-    return dict(launches=learner["gather_launches"],
-                shard_launches=sum(st["gather_launches"]["gather_stacks"]
-                                   for st in shards),
+    return dict(launches=stats_launches(learner),
+                shard_launches=summed([stats_launches(st) for st in shards]),
                 barrier_s=barrier_s, wall=wall)
 
 
@@ -5504,7 +5670,7 @@ def soak_run(dev) -> dict:
           f"frames, the learner ingested {thr['ingested_final']}")
     resolved = walls["RESOLVED"]
     shutil.rmtree(tmp, ignore_errors=True)
-    return dict(launches=learner["gather_launches"], wall=wall,
+    return dict(launches=stats_launches(learner), wall=wall,
                 kill_to_resolved=resolved - kill_wall)
 
 
@@ -5545,8 +5711,7 @@ def tools_phase(dev) -> dict:
         f"{n} {b - a:.1f}" for n, a, b in zip(names, t, t[1:]))
         + f"; in all {t[-1] - t[0]:.1f}")
     return {"launch": launch["launches"],
-            "launch_shards": {"gather_rows": 0,
-                              "gather_stacks": launch["shard_launches"]},
+            "launch_shards": launch["shard_launches"],
             "soak": soak["launches"]}
 
 
@@ -5644,7 +5809,7 @@ def _dp_ref_rank(store, rank: int, world: int, device: str,
     (``geometry``: the module constants it set) on ``device`` (rank 0's
     card), weights from its own seed until rank 0's arrive, joined to the
     gloo groups, applying rank 0's ops until ``stop``; its step records
-    and gather launches go to the store."""
+    and kernel launches go to the store."""
     from apex_tpu_torch.ops import gather
     from apex_tpu_torch.parallel.learner import ShardedLearner
     from apex_tpu_torch.parallel.mesh import init_dp
@@ -5658,8 +5823,7 @@ def _dp_ref_rank(store, rank: int, world: int, device: str,
     sl = ShardedLearner(core, group)
     state = {"ts": ts, "rs": rs, "fused": sl.make_fused_step()}
     records = []
-    for name in gather.LAUNCH_COUNTS:
-        gather.LAUNCH_COUNTS[name] = 0
+    zero_launches(gather)
     while True:
         msg = group.recv_op()
         if msg["op"] == "stop":
@@ -5668,7 +5832,7 @@ def _dp_ref_rank(store, rank: int, world: int, device: str,
         if msg["op"] == "fused":
             records.append(out)
     store.set(f"stats/{rank}", json.dumps({
-        "records": records, "launches": dict(gather.LAUNCH_COUNTS),
+        "records": records, "launches": read_launches(gather),
         "peak": (torch.cuda.max_memory_allocated(dev)
                  if dev.type == "cuda" else 0)}))
     group.close()
@@ -5682,7 +5846,6 @@ def _first_use_build(build_dir: str) -> dict:
     version."""
     from apex_tpu_torch.ops import gather
 
-    gather.BUILD_DIR = build_dir
     gather.LIBRARY = os.path.join(build_dir, os.path.basename(gather.LIBRARY))
     compiled = not os.path.exists(gather.LIBRARY)
     t0 = time.perf_counter()
@@ -5841,8 +6004,7 @@ def dp_reference_run(dev, gather, msgs: list) -> dict:
 
         numbers = sl.train_state_numbers(ts)
         send(lambda r: {"op": "sync", "numbers": numbers})
-        for name in gather.LAUNCH_COUNTS:             # main path starts
-            gather.LAUNCH_COUNTS[name] = 0
+        zero_launches(gather)                         # main path starts
         records = []
         t1 = time.perf_counter()
         for i, (_, blobs) in enumerate(groups):
@@ -5854,7 +6016,7 @@ def dp_reference_run(dev, gather, msgs: list) -> dict:
                 "beta": beta}))
         torch.cuda.synchronize()
         steps_s = time.perf_counter() - t1
-        launches0 = dict(gather.LAUNCH_COUNTS)        # main path ends
+        launches0 = read_launches(gather)             # main path ends
         timed = send(lambda r: {"op": "allreduce",
                                 "reps": DP_ALLREDUCE_REPS})
         group.send_ops([None] + [{"op": "stop"}] * (DP_WORLD - 1))
@@ -5873,7 +6035,8 @@ def dp_reference_run(dev, gather, msgs: list) -> dict:
     check(not ranks.alive(), "dp_reference: a rank process outlived 17a")
     launches1 = peer["launches"]
     for r, got in enumerate((launches0, launches1)):
-        check(got == {"gather_rows": 0, "gather_stacks": DP_REF_STEPS},
+        check(gather_part(got) == {"gather_rows": 0,
+                                   "gather_stacks": DP_REF_STEPS},
               f"dp_reference: rank {r} gather launches {got} in "
               f"{DP_REF_STEPS} steps")
     recs1 = peer["records"]
@@ -5950,23 +6113,23 @@ def dp_train_run(dev, gather, p5: dict, p17a: dict) -> dict:
     trainer = ApexTrainer(cfg, publish_min_seconds=0.5, dp_backend="gloo")
     check(trainer.n_dp == DP_WORLD and trainer.dp_backend == "gloo",
           f"dp_train: n_dp {trainer.n_dp}, backend {trainer.dp_backend}")
-    for name in gather.LAUNCH_COUNTS:                 # main path starts
-        gather.LAUNCH_COUNTS[name] = 0
+    zero_launches(gather)                             # main path starts
     t0 = time.perf_counter()
     trainer.train(total_steps=DP_TRAIN_STEPS, max_seconds=DP_SECONDS,
                   log_every=20)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches0 = dict(gather.LAUNCH_COUNTS)            # main path ends
+    launches0 = read_launches(gather)                 # main path ends
     ranks = trainer.dp_rank_stats
     check(trainer.steps == DP_TRAIN_STEPS,
           f"dp_train: {trainer.steps} learner steps in {wall:.1f} s, want "
           f"{DP_TRAIN_STEPS} within {DP_SECONDS} s")
     check(sorted(ranks) == list(range(DP_WORLD)),
           f"dp_train: rank records {sorted(ranks)}")
-    launches1 = ranks[1]["gather_launches"]
+    launches1 = stats_launches(ranks[1])
     for r, got in enumerate((launches0, launches1)):
-        check(got == {"gather_rows": 0, "gather_stacks": trainer.steps},
+        check(gather_part(got) == {"gather_rows": 0,
+                                   "gather_stacks": trainer.steps},
               f"dp_train: rank {r} gather launches {got} in "
               f"{trainer.steps} steps")
         check(ranks[r]["steps"] == trainer.steps,
@@ -6039,15 +6202,14 @@ def dp_nccl1_run(dev, gather, msgs: list) -> dict:
                    for _ in range(DP_NCCL_STEPS)]
         chunks = [(m["payload"], m["priorities"])
                   for m in msgs[:1 + DP_NCCL_STEPS]]
-        for name in gather.LAUNCH_COUNTS:             # main path starts
-            gather.LAUNCH_COUNTS[name] = 0
+        zero_launches(gather)                         # main path starts
         rs = sl.make_ingest()(rs, *chunks[0])
         got = []
         for (payload, prios), off in zip(chunks[1:], offsets):
             ts, rs, m = fused(ts, rs, payload, prios, off, 0.4)
             got.append({k: v.detach().clone() for k, v in m.items()})
         torch.cuda.synchronize()
-        launches = dict(gather.LAUNCH_COUNTS)         # main path ends
+        launches = read_launches(gather)              # main path ends
         wall = time.perf_counter() - t0
         group.close()
         ref_core, ref_ts, ref_rs = _dp_learner(dev, SEED)
@@ -6059,7 +6221,8 @@ def dp_nccl1_run(dev, gather, msgs: list) -> dict:
             want.append(m)
     finally:
         torch.backends.cudnn.deterministic = deterministic
-    check(launches == {"gather_rows": 0, "gather_stacks": DP_NCCL_STEPS},
+    check(gather_part(launches) == {"gather_rows": 0,
+                                    "gather_stacks": DP_NCCL_STEPS},
           f"dp_nccl1: gather launches {launches} in {DP_NCCL_STEPS} steps")
     for i, (a, b) in enumerate(zip(got, want)):
         for name in a:
@@ -6198,14 +6361,13 @@ def dp_fused_run(dev, gather, p10: dict) -> dict:
                                    steps_per_dispatch=1, dp_backend="gloo",
                                    publish_min_seconds=0.5)  # on "cuda"
         fused = trainer.fused
-        for name in gather.LAUNCH_COUNTS:             # main path starts
-            gather.LAUNCH_COUNTS[name] = 0
+        zero_launches(gather)                         # main path starts
         t0 = time.perf_counter()
         trainer.train(total_steps=DP_FUSED_STEPS, max_seconds=DP_SECONDS,
                       log_every=2)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches0 = dict(gather.LAUNCH_COUNTS)        # main path ends
+        launches0 = read_launches(gather)             # main path ends
         ranks = trainer.dp_rank_stats
         steps, dispatches = trainer.steps, fused.dispatches
         counters = fused.counters()
@@ -6229,12 +6391,13 @@ def dp_fused_run(dev, gather, p10: dict) -> dict:
         (torch.backends.cudnn.deterministic,
          torch.backends.cudnn.benchmark) = flags
     torch.cuda.empty_cache()
-    launches1 = ranks[1]["gather_launches"]
+    launches1 = stats_launches(ranks[1])
     check(DP_FUSED_STEPS <= steps and counters["dp"] == DP_WORLD,
           f"{what}: {steps} learner steps in {dispatches} dispatches, "
           f"counters {counters}")
     for r, counts in enumerate((launches0, launches1)):
-        check(counts == {"gather_rows": 0, "gather_stacks": steps},
+        check(gather_part(counts) == {"gather_rows": 0,
+                                      "gather_stacks": steps},
               f"{what}: rank {r} gather launches {counts} in {steps} steps")
     check(ranks[1]["steps"] == steps,
           f"{what}: rank 1 took {ranks[1]['steps']} steps")
@@ -6284,24 +6447,24 @@ def dp_anakin_run(dev, gather) -> dict:
     pool = AnakinPool(cfg, make_anakin_engine(cfg, rollout_len=ONDEVICE_T))
     trainer = ApexTrainer(cfg, pool=pool, publish_min_seconds=0.5,
                           dp_backend="gloo")                # on "cuda"
-    for name in gather.LAUNCH_COUNTS:                 # main path starts
-        gather.LAUNCH_COUNTS[name] = 0
+    zero_launches(gather)                             # main path starts
     t0 = time.perf_counter()
     trainer.train(total_steps=DP_ANAKIN_STEPS, max_seconds=DP_SECONDS,
                   log_every=20)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches0 = dict(gather.LAUNCH_COUNTS)            # main path ends
+    launches0 = read_launches(gather)                 # main path ends
     ranks = trainer.dp_rank_stats
     trainer.close()
     check(not mp.active_children(),
           f"{what}: processes outlived close(): {mp.active_children()}")
-    launches1 = ranks[1]["gather_launches"]
+    launches1 = stats_launches(ranks[1])
     steps = trainer.steps
     check(steps == DP_ANAKIN_STEPS,
           f"{what}: {steps} learner steps in {wall:.1f} s")
     for r, counts in enumerate((launches0, launches1)):
-        check(counts == {"gather_rows": 0, "gather_stacks": steps},
+        check(gather_part(counts) == {"gather_rows": 0,
+                                      "gather_stacks": steps},
               f"{what}: rank {r} gather launches {counts} in {steps} steps")
         check(ranks[r]["steps"] == steps,
               f"{what}: rank {r} took {ranks[r]['steps']} steps")
@@ -6365,7 +6528,7 @@ def dp_service_run(dev, gather) -> dict:
           f"{what}: a shard printed no stats")
     client = trainer.replay_client
     ranks = trainer.dp_rank_stats
-    launches1 = ranks[1]["gather_launches"]
+    launches1 = stats_launches(ranks[1])
     local = trainer.steps - trainer.service_steps
     check(trainer.steps == DP_SERVICE_STEPS and trainer.service_steps > 0,
           f"{what}: {trainer.steps} learner steps ({trainer.service_steps} "
@@ -6375,7 +6538,8 @@ def dp_service_run(dev, gather) -> dict:
           f"{what}: rank 1 took {ranks[1]['steps']} steps, "
           f"{ranks[1]['service_steps']} on service batches")
     for r, counts in enumerate((launches0, launches1)):
-        check(counts == {"gather_rows": 0, "gather_stacks": local},
+        check(gather_part(counts) == {"gather_rows": 0,
+                                      "gather_stacks": local},
               f"{what}: rank {r} gather launches {counts} with {local} "
               f"local fallback steps")
     check(client.prio_sent == trainer.service_steps
@@ -6404,8 +6568,7 @@ def dp_service_run(dev, gather) -> dict:
         + f"); learner steps/s {trainer.steps_rate.rate:.3f}; gather "
         f"launches rank 0 {launches0}, rank 1 {launches1}, shards "
         f"{[st['gather_launches']['gather_stacks'] for st in shards]}")
-    shard_launches = {"gather_rows": 0, "gather_stacks": sum(
-        st["gather_launches"]["gather_stacks"] for st in shards)}
+    shard_launches = summed([stats_launches(st) for st in shards])
     del trainer
     torch.cuda.empty_cache()
     return {"launches": {k: launches0[k] + launches1[k] for k in launches0},
@@ -6443,8 +6606,7 @@ def dp_checkpoint_run(dev, gather, msgs: list) -> dict:
                                    checkpoint_dir=os.path.join(tmp, name))
 
             a = trainer("a", msgs)
-            for name in gather.LAUNCH_COUNTS:         # main path starts
-                gather.LAUNCH_COUNTS[name] = 0
+            zero_launches(gather)                     # main path starts
             a.train(total_steps=DP_CKPT_STEPS, max_seconds=DP_SECONDS)
             t0 = time.perf_counter()
             path = a.save_checkpoint()
@@ -6453,17 +6615,16 @@ def dp_checkpoint_run(dev, gather, msgs: list) -> dict:
             rest = list(a.pool.pool._msgs)
             a.train(total_steps=DP_CKPT_STEPS, max_seconds=DP_SECONDS)
             torch.cuda.synchronize()
-            launches_a = dict(gather.LAUNCH_COUNTS)
+            launches_a = read_launches(gather)
             ranks_a = a.dp_rank_stats
             b = trainer("b", rest)
             t0 = time.perf_counter()
             b.restore(path)
             restore_s = time.perf_counter() - t0
-            for name in gather.LAUNCH_COUNTS:
-                gather.LAUNCH_COUNTS[name] = 0
+            zero_launches(gather)
             b.train(total_steps=DP_CKPT_STEPS, max_seconds=DP_SECONDS)
             torch.cuda.synchronize()
-            launches_b = dict(gather.LAUNCH_COUNTS)   # main path ends
+            launches_b = read_launches(gather)        # main path ends
             ranks_b = b.dp_rank_stats
             # the bundles a save would write, gathered to the host
             same = _same(b._sharded_bundle(), a._sharded_bundle())
@@ -6483,11 +6644,13 @@ def dp_checkpoint_run(dev, gather, msgs: list) -> dict:
     check(same, f"{what}: the restored trainer's bundle differs from the "
                 f"uninterrupted one's")
     want_l = {"gather_rows": 0, "gather_stacks": 2 * DP_CKPT_STEPS}
-    check(launches_a == want_l and ranks_a[1]["gather_launches"] == want_l,
+    check(gather_part(launches_a) == want_l
+          and ranks_a[1]["gather_launches"] == want_l,
           f"{what}: A's gather launches {launches_a} / "
           f"{ranks_a[1]['gather_launches']}")
     want_l = {"gather_rows": 0, "gather_stacks": DP_CKPT_STEPS}
-    check(launches_b == want_l and ranks_b[1]["gather_launches"] == want_l,
+    check(gather_part(launches_b) == want_l
+          and ranks_b[1]["gather_launches"] == want_l,
           f"{what}: B's gather launches {launches_b} / "
           f"{ranks_b[1]['gather_launches']}")
     log(f"{what}: dp {DP_WORLD} ApexTrainer, capacity {DP_SHARD_CAPACITY} "
@@ -6502,8 +6665,7 @@ def dp_checkpoint_run(dev, gather, msgs: list) -> dict:
         f"{ranks_b[1]['gather_launches']}")
     torch.cuda.empty_cache()
     r0 = {k: launches_a[k] + launches_b[k] for k in launches_a}
-    r1 = {k: ranks_a[1]["gather_launches"][k]
-          + ranks_b[1]["gather_launches"][k] for k in launches_a}
+    r1 = summed([stats_launches(ranks_a[1]), stats_launches(ranks_b[1])])
     return {"launches": {k: r0[k] + r1[k] for k in r0},
             "rank_launches": [r0, r1]}
 
@@ -6559,7 +6721,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
-    from apex_tpu_torch.ops import gather
+    from apex_tpu_torch.ops import gather, tree
 
     t_script = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -6569,6 +6731,9 @@ def main() -> int:
     t0 = time.perf_counter()
     gather.build(verbose=True)
     log(f"build: gather.cu in {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    tree.build(verbose=True)
+    log(f"build: tree.cu in {time.perf_counter() - t0:.3f} s")
 
     marks = [("build", time.perf_counter())]
 
@@ -6634,9 +6799,10 @@ def main() -> int:
              "r2d2_single": r2d2_single["launches"], **ondevice, **aql,
              **remote, **services, **fleet, **control, **tools, **dp}
     # each kernel's main path is the trainers' train() that runs it:
-    # ApexTrainer's for gather_stacks, R2D2ApexTrainer's for gather_rows;
-    # the other paths stand beside
-    main_path = {"gather_stacks": "train", "gather_rows": "r2d2_train"}
+    # ApexTrainer's for gather_stacks and tree_update, R2D2ApexTrainer's
+    # for gather_rows; the other paths stand beside
+    main_path = {"gather_stacks": "train", "gather_rows": "r2d2_train",
+                 "tree_update": "train"}
     for row in rows:
         row["launches"] = paths[main_path[row["name"]]][row["name"]]
         row["launches_by_path"] = {path: counts[row["name"]]
