@@ -11,8 +11,11 @@ priorities (:class:`apex_tpu_torch.training.r2d2.SequenceBuilder`),
 
 The carry is worker-local: it threads through the episode, resets at
 episode boundaries, and only its stride-aligned snapshots go into the
-builder (its ``needs_carry`` gate).  Each message carries a lineage span
-in its metadata (:func:`drain_grouped`).
+builder (its ``needs_carry`` gate).  A model fed the previous action and
+reward (``r2d2.prev_action_reward``) gets them beside the carry, zeros at
+an episode's first step, and the builder records them at each sequence
+start.  Each message carries a lineage span in its metadata
+(:func:`drain_grouped`).
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch
 
 from apex_tpu_torch.actors.vector import VectorFamilyBase, group_generator
 from apex_tpu_torch.config import ApexConfig
+from apex_tpu_torch.models.recurrent import initial_prev
 
 
 def sequence_message(seqs: list[dict]) -> dict:
@@ -117,6 +121,7 @@ def _sequence_builder(cfg: ApexConfig, obs_shape):
     :func:`~apex_tpu_torch.training.r2d2.r2d2_uses_frame_pool` picks, the
     predicate the learner's replay is built by."""
     from apex_tpu_torch.training.r2d2 import (SequenceBuilder,
+                                              r2d2_rescale_eps,
                                               r2d2_uses_frame_pool)
 
     pooled = r2d2_uses_frame_pool(cfg, obs_shape)
@@ -124,7 +129,9 @@ def _sequence_builder(cfg: ApexConfig, obs_shape):
 
     def make():
         return SequenceBuilder(rc.burn_in, rc.unroll, lc.n_steps, lc.gamma,
-                               stride=rc.stride, pooled=pooled)
+                               stride=rc.stride, pooled=pooled,
+                               prev_inputs=rc.prev_action_reward,
+                               rescale_eps=r2d2_rescale_eps(cfg))
 
     return make, (pooled_sequence_message if pooled else sequence_message)
 
@@ -156,6 +163,7 @@ class R2D2WorkerFamily:
         self.builder = make_builder()
         self.group = group
         self.carry = self.model.initial_state(1)
+        self.prev = initial_prev(self.model, 1)
         self._obs = None
         self._ready: list[dict] = []
 
@@ -166,6 +174,7 @@ class R2D2WorkerFamily:
     def begin_episode(self, obs) -> None:
         self._obs = np.asarray(obs)
         self.carry = self.model.initial_state(1)
+        self.prev = initial_prev(self.model, 1)
 
     def step(self, epsilon: float, generator: torch.Generator):
         """One env step with the carry that produced its action; returns
@@ -175,9 +184,13 @@ class R2D2WorkerFamily:
         if self.builder.needs_carry:
             cc, ch = (t[0].numpy().copy() for t in self.carry)
         actions, q, self.carry = self.policy(torch.from_numpy(obs[None]),
-                                             self.carry, epsilon, generator)
+                                             self.carry, epsilon, generator,
+                                             self.prev)
         action = int(actions[0])
         next_obs, reward, term, trunc, _ = self.env.step(action)
+        if self.prev is not None:
+            self.prev = (actions.long(),
+                         torch.full_like(self.prev[1], float(reward)))
         self.builder.add_step(obs, action, float(reward), bool(term), cc, ch,
                               q_values=q[0].numpy())
         if term or trunc:
@@ -218,6 +231,7 @@ class VectorR2D2WorkerFamily(VectorFamilyBase):
         self.double_buffer = False
         self.model, self.policy = _cpu_model(model_spec, self.seeds[0])
         self.carry = self.model.initial_state(self.n_envs)
+        self.prev = initial_prev(self.model, self.n_envs)
         make_builder, self.message_fn = _sequence_builder(
             cfg, self.envs[0].observation_space.shape)
         self.builders = [make_builder() for _ in range(self.n_envs)]
@@ -234,6 +248,8 @@ class VectorR2D2WorkerFamily(VectorFamilyBase):
         self._obs[i] = np.asarray(obs)
         for t in self.carry:
             t[i] = 0.0
+        for t in self.prev or ():
+            t[i] = 0
 
     def load_params(self, params) -> None:
         from apex_tpu_torch.models.dueling import load_host_params
@@ -251,7 +267,10 @@ class VectorR2D2WorkerFamily(VectorFamilyBase):
         with self.phase.phase("policy_wait"):
             actions, q, self.carry = self.policy(
                 torch.from_numpy(obs), self.carry, eps,
-                group_generator(seed, 0))
+                group_generator(seed, 0), self.prev)
+            if self.prev is not None:
+                # this step's action; its rewards are written below
+                self.prev = (actions.long().clone(), self.prev[1].clone())
             actions, q = actions.numpy(), q.numpy()
         self.gap.dispatch_returned()
         stats: list = []
@@ -259,6 +278,8 @@ class VectorR2D2WorkerFamily(VectorFamilyBase):
             for i, env in enumerate(self.envs):
                 a = int(actions[i])
                 next_obs, reward, term, trunc, _ = env.step(a)
+                if self.prev is not None:
+                    self.prev[1][i] = float(reward)
                 self.builders[i].add_step(
                     obs[i], a, float(reward), bool(term),
                     cc_all[i] if need[i] else None,

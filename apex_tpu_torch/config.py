@@ -56,6 +56,11 @@ class LearnerConfig:
     gamma: float = 0.99
     n_steps: int = 3
     max_grad_norm: float = 40.0
+    # the update rule after the clip: "rmsprop" (the rmsprop_* fields) or
+    # "adam" (optax.adam with b1 0.9, b2 0.999 and adam_eps; the R2D2
+    # family only)
+    optimizer: str = "rmsprop"
+    adam_eps: float = 1e-8
     target_update_interval: int = 2500
     publish_interval: int = 25       # param publish period, learner steps
     save_interval: int = 5000        # learner steps between checkpoints
@@ -131,6 +136,13 @@ class R2D2Config:
     unroll: int = 16            # loss positions per sequence
     stride: int | None = None   # sequence start spacing; None = unroll // 2
     lstm_features: int = 128    # recurrent width
+    head_width: int = 128       # units of each dueling head's hidden layer
+    # feed the LSTM the previous action (one-hot) and the previous reward
+    # beside the trunk's features (R2D2's appendix)
+    prev_action_reward: bool = False
+    # epsilon of the value rescaling h(x) = sign(x)(sqrt(|x|+1)-1) + eps x
+    # on the targets and the acting priorities; 0 = no rescaling
+    value_rescale_eps: float = 0.0
     # sequences per ingest batch and per actor message: one fixed message
     # shape for the drivers and the shm slot sizing
     sequence_group: int = 4

@@ -363,6 +363,8 @@ def make_device_env(env_id: str | None = None, cfg=None,
         if "Medium" in env_id:
             return CatchEnv(grid=11, pixels=44, balls=4, env_id=env_id,
                             device=device)
+        if env_id == "ApexCatchLong-v0":
+            return CatchEnv(balls=50, env_id=env_id, device=device)
         return CatchEnv(env_id=env_id, device=device)
     if "Small" in env_id:
         return RallyEnv(grid=14, pixels=42, points=2, agent_half=2,

@@ -91,7 +91,9 @@ def make_env(env_id: str | None = None, cfg: EnvConfig | None = None,
     point driven to the origin, 30 steps unless ``max_episode_steps`` is
     given), the Catch variants (Small 7x7
     at 42x42 with 3 balls, Medium 11x11 at 44x44 with 4 balls, full 21x21
-    at 84x84 with 5 balls) and the Rally variants (Small: a 14-cell court
+    at 84x84 with 5 balls, and the port's ``ApexCatchLong-v0``, full Catch
+    with 50 balls, 1000-step games for a recurrent learner's long
+    sequences) and the Rally variants (Small: a 14-cell court
     at 42x42, 2 points, the agent's paddle half-height 2 and a 0.45-speed
     opponent; full: 21 cells at 84x84, 3 points, the symmetric speed-1
     duel).  For the pixel envs ``max_episode_steps`` wraps the env in
@@ -116,6 +118,8 @@ def make_env(env_id: str | None = None, cfg: EnvConfig | None = None,
             env = CatchEnv(grid=7, pixels=42, balls=3)
         elif "Medium" in env_id:
             env = CatchEnv(grid=11, pixels=44, balls=4)
+        elif env_id == "ApexCatchLong-v0":
+            env = CatchEnv(balls=50)
         else:
             env = CatchEnv()
         if max_episode_steps is not None:

@@ -13,7 +13,18 @@ weights:
   output is f32.
 * The LSTM runs in f32 outside autocast (bf16 carries drift over long
   unrolls), over the whole ``[B, L]`` segment in one ``torch.lstm`` call,
-  where JAX scans one cell with ``lax.scan``.
+  where JAX scans one cell with ``lax.scan``.  On the card that call is
+  cuDNN's, which would take TF32 for its matmuls under torch's default
+  ``cudnn.allow_tf32``; :class:`LSTM` turns that off around the call
+  (:func:`f32_cudnn`), and the learner around its backward too, so the
+  recurrence is f32 on the card as on the CPU.
+* With ``prev_action_reward`` (R2D2's appendix; Acme's observation,
+  action and reward embedding) the LSTM's input is the trunk's features,
+  then the previous action one-hot (``num_actions`` wide) and then the
+  previous reward (one column, raw), so ``weight_ih`` is ``[4H, F + A +
+  1]``.  At an episode's first step both are zero, the previous action
+  being action 0 (Acme's reset values).  Off (the default), the model
+  is the JAX model.
 * The carry is ``(c, h)``, each ``f32[B, lstm_features]``, flax's order
   (torch's own LSTM takes ``(h, c)``).
 * flax's ``OptimizedLSTMCell`` has biases on the hidden side only
@@ -26,6 +37,7 @@ weights:
 
 from __future__ import annotations
 
+import contextlib
 from typing import Sequence
 
 import torch
@@ -61,20 +73,37 @@ class LSTM(nn.Module):
     def forward(self, x: torch.Tensor, carry):
         c, h = carry
         train = torch.is_grad_enabled() and self.weight_ih.requires_grad
-        h_seq, h_n, c_n = torch.lstm(
-            x, (h[None].contiguous(), c[None].contiguous()),
-            [self.weight_ih, self.weight_hh, self.bias_ih, self.bias_hh],
-            True, 1, 0.0, train, False, True)
+        with f32_cudnn():
+            h_seq, h_n, c_n = torch.lstm(
+                x, (h[None].contiguous(), c[None].contiguous()),
+                [self.weight_ih, self.weight_hh, self.bias_ih, self.bias_hh],
+                True, 1, 0.0, train, False, True)
         return h_seq, (c_n[0], h_n[0])
+
+
+@contextlib.contextmanager
+def f32_cudnn():
+    """cuDNN's RNN in f32 math: TF32 off inside, restored after.  The flag
+    is read when cuDNN's descriptors are made, so a backward pass takes
+    the value in force where ``autograd.grad`` is called."""
+    flags = torch.backends.cudnn
+    saved = flags.allow_tf32
+    flags.allow_tf32 = False
+    try:
+        yield
+    finally:
+        flags.allow_tf32 = saved
 
 
 class RecurrentDuelingDQN(nn.Module):
     """Dueling Q-network with an LSTM between trunk and heads.
 
-    ``forward(x_seq, carry)`` takes ``x_seq [B, L, *obs_shape]`` and
-    ``carry = (c, h)``, each ``f32[B, lstm_features]``; returns
-    ``(q_seq f32[B, L, A], new_carry)``.  ``obs_shape`` is one
-    observation, ``(H, W, C)`` for pixels or ``(D,)`` for vectors.
+    ``forward(x_seq, carry, prev=None)`` takes ``x_seq [B, L,
+    *obs_shape]`` and ``carry = (c, h)``, each ``f32[B, lstm_features]``;
+    with ``prev_action_reward`` also ``prev = (prev_action [B, L],
+    prev_reward [B, L])``, the action taken and the reward received before
+    each step; returns ``(q_seq f32[B, L, A], new_carry)``.  ``obs_shape``
+    is one observation, ``(H, W, C)`` for pixels or ``(D,)`` for vectors.
     ``generator`` draws the init (never the global RNG).
     """
 
@@ -83,10 +112,12 @@ class RecurrentDuelingDQN(nn.Module):
                  compute_dtype: torch.dtype = torch.bfloat16,
                  scale_uint8: bool = True,
                  trunk_features: Sequence[int] = (32, 64, 64),
-                 lstm_features: int = 128, head_width: int = 128, *,
+                 lstm_features: int = 128, head_width: int = 128,
+                 prev_action_reward: bool = False, *,
                  generator: torch.Generator):
         super().__init__()
         self.num_actions = num_actions
+        self.prev_action_reward = prev_action_reward
         self.obs_is_image = obs_is_image
         self.compute_dtype = compute_dtype
         self.scale_uint8 = scale_uint8
@@ -112,7 +143,8 @@ class RecurrentDuelingDQN(nn.Module):
                 nn.init.orthogonal_(module.weight, gain=_RELU_GAIN,
                                     generator=generator)
                 nn.init.zeros_(module.bias)
-        self.lstm = LSTM(trunk_out, lstm_features, generator=generator)
+        lstm_in = trunk_out + (num_actions + 1 if prev_action_reward else 0)
+        self.lstm = LSTM(lstm_in, lstm_features, generator=generator)
 
     def initial_state(self, batch_size: int,
                       device: torch.device | str | None = None):
@@ -123,7 +155,7 @@ class RecurrentDuelingDQN(nn.Module):
         z = torch.zeros((batch_size, self.lstm_features), device=device)
         return (z, z.clone())
 
-    def forward(self, x_seq: torch.Tensor, carry):
+    def forward(self, x_seq: torch.Tensor, carry, prev=None):
         dt = self.compute_dtype
         b, length = x_seq.shape[:2]
         x = x_seq.reshape((b * length,) + tuple(x_seq.shape[2:]))
@@ -142,7 +174,13 @@ class RecurrentDuelingDQN(nn.Module):
             else:
                 x = torch.relu(self.Dense_0(x))
         with torch.autocast(x.device.type, enabled=False):
-            h_seq, carry = self.lstm(x.float().view(b, length, -1), carry)
+            x = x.float().view(b, length, -1)
+            if self.prev_action_reward:
+                if prev is None:
+                    raise ValueError("this model reads the previous action "
+                                     "and reward: pass prev")
+                x = torch.cat([x, prev_inputs(prev, self.num_actions)], -1)
+            h_seq, carry = self.lstm(x, carry)
         with torch.autocast(**mixed):
             h = h_seq.reshape(b * length, -1).to(dt)
             advantage = self.advantage_out(
@@ -152,17 +190,31 @@ class RecurrentDuelingDQN(nn.Module):
         return q.view(b, length, self.num_actions), carry
 
 
+def prev_inputs(prev, num_actions: int) -> torch.Tensor:
+    """``(prev_action [B, L], prev_reward [B, L])`` as the LSTM's extra
+    input columns ``f32[B, L, A + 1]``: the action one-hot, then the
+    reward."""
+    action, reward = prev
+    onehot = torch.nn.functional.one_hot(action.long(), num_actions)
+    return torch.cat([onehot.float(), reward.float()[..., None]], -1)
+
+
 def make_recurrent_policy_fn(model: RecurrentDuelingDQN):
     """Stateful epsilon-greedy step with the model's current weights:
-    ``policy(obs [B, *obs], carry, epsilon, generator) -> (actions [B],
-    q [B, A], new_carry)``.  The caller owns the carry (one row per env
-    slot) and resets it to :meth:`RecurrentDuelingDQN.initial_state` at
-    episode boundaries.  The exploration draws come from ``generator`` on
-    the model's device."""
+    ``policy(obs [B, *obs], carry, epsilon, generator, prev=None) ->
+    (actions [B], q [B, A], new_carry)``.  The caller owns the carry (one
+    row per env slot) and resets it to :meth:`RecurrentDuelingDQN.
+    initial_state` at episode boundaries; with ``prev_action_reward`` it
+    also passes ``prev = (prev_action [B], prev_reward [B])``, zeros at an
+    episode's first step.  The exploration draws come from ``generator``
+    on the model's device."""
 
     @torch.no_grad()
-    def policy(obs: torch.Tensor, carry, epsilon, generator: torch.Generator):
-        q_seq, carry = model(obs[:, None], carry)
+    def policy(obs: torch.Tensor, carry, epsilon, generator: torch.Generator,
+               prev=None):
+        if prev is not None:
+            prev = tuple(t[:, None] for t in prev)
+        q_seq, carry = model(obs[:, None], carry, prev)
         q = q_seq[:, 0]
         greedy = q.argmax(dim=1)
         random_actions = torch.randint(0, model.num_actions, greedy.shape,
@@ -175,19 +227,43 @@ def make_recurrent_policy_fn(model: RecurrentDuelingDQN):
     return policy
 
 
+def initial_prev(model: RecurrentDuelingDQN, batch_size: int,
+                 device: torch.device | str | None = None):
+    """``(prev_action, prev_reward)`` of an episode's first step, zeros
+    ``[B]``, for a model with ``prev_action_reward``; None otherwise."""
+    if not model.prev_action_reward:
+        return None
+    if device is None:
+        device = model.lstm.weight_ih.device
+    return (torch.zeros(batch_size, dtype=torch.long, device=device),
+            torch.zeros(batch_size, device=device))
+
+
 def episodic_policy(model: RecurrentDuelingDQN):
     """``(policy, reset)`` for episode loops that act on a batch of one
     (:func:`apex_tpu_torch.training.checkpoint.run_policy_episodes`):
     ``policy(obs, epsilon, generator) -> (actions, q)`` threads a carry it
-    holds itself, and ``reset()`` zeroes it at an episode's start."""
+    holds itself, and ``reset()`` zeroes it at an episode's start.  Where
+    the model reads the previous action and reward, the policy keeps its
+    last action, ``policy.observe_reward(r)`` (the loop's ``reward_hook``)
+    records the reward the env returned for it, and ``reset()`` zeroes
+    both."""
     step = make_recurrent_policy_fn(model)
-    box = [model.initial_state(1)]
+    box = [model.initial_state(1), initial_prev(model, 1)]
 
     def policy(obs, epsilon, generator):
-        actions, q, box[0] = step(obs, box[0], epsilon, generator)
+        actions, q, box[0] = step(obs, box[0], epsilon, generator, box[1])
+        if box[1] is not None:
+            box[1] = (actions.long(), box[1][1])
         return actions, q
+
+    def observe_reward(reward: float) -> None:
+        if box[1] is not None:
+            box[1] = (box[1][0], torch.full_like(box[1][1], float(reward)))
 
     def reset():
         box[0] = model.initial_state(1)
+        box[1] = initial_prev(model, 1)
 
+    policy.observe_reward = observe_reward
     return policy, reset

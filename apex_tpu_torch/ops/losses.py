@@ -6,7 +6,11 @@ n-step double-DQN Huber loss with IS weights, the mixed-max priority
 heuristic, the recurrent sequence loss with burn-in, global-norm clipping
 + centered RMSprop + StepLR, and the AQL half (``losses.py:225-330``):
 the candidate-set Q loss, the proposal loss, the two parameter groups and
-their per-group clip + Adam with an optional cosine schedule.
+their per-group clip + Adam with an optional cosine schedule.  The
+recurrent family at R2D2's published settings adds the value rescaling
+``h`` and its inverse (:func:`value_rescale`), the previous action and
+reward fed beside the frames (:func:`sequence_prev`) and clip + Adam
+(:class:`ClipAdam`, AQL's update rule on one group).
 
 The optimizers are written out by hand to match optax, because stock
 torch differs.  RMSprop, in three places:
@@ -36,6 +40,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 from torch import nn
+
+from apex_tpu_torch.obs.trace import LEARNER_TRACK, span
 
 
 class TDOutput(NamedTuple):
@@ -98,10 +104,43 @@ def double_dqn_loss(online: nn.Module, target: nn.Module,
                           q_taken=q_taken.detach())
 
 
+def value_rescale(x: torch.Tensor, eps: float) -> torch.Tensor:
+    """R2D2's ``h(x) = sign(x) (sqrt(|x| + 1) - 1) + eps x``."""
+    return torch.sign(x) * (torch.sqrt(x.abs() + 1.0) - 1.0) + eps * x
+
+
+def inverse_value_rescale(x: torch.Tensor, eps: float) -> torch.Tensor:
+    """``h^-1(x) = sign(x) (((sqrt(1 + 4 eps (|x| + 1 + eps)) - 1) /
+    (2 eps))^2 - 1)``, and ``sign(x) ((|x| + 1)^2 - 1)`` at ``eps = 0``."""
+    a = x.abs()
+    if eps:
+        root = (torch.sqrt(1.0 + 4.0 * eps * (a + 1.0 + eps)) - 1.0) / (
+            2.0 * eps)
+    else:
+        root = a + 1.0
+    return torch.sign(x) * (root * root - 1.0)
+
+
+def sequence_prev(batch: dict[str, torch.Tensor]):
+    """The previous action and reward before every stored step ``[B, T]``,
+    or None for a batch without them: the sequence's stored
+    ``prev_action``/``prev_reward`` ``[B]`` at its first step, then its
+    own actions and rewards shifted by one."""
+    if "prev_action" not in batch:
+        return None
+    action, reward = batch["action"], batch["reward"]
+    return (torch.cat([batch["prev_action"][:, None].to(action.dtype),
+                       action[:, :-1]], 1),
+            torch.cat([batch["prev_reward"][:, None].to(reward.dtype),
+                       reward[:, :-1]], 1))
+
+
 def r2d2_loss(online: nn.Module, target: nn.Module,
               batch: dict[str, torch.Tensor], weights: torch.Tensor, *,
               burn_in: int, n_steps: int, eta: float = PRIORITY_ETA,
-              eps: float = 1e-6) -> tuple[torch.Tensor, TDOutput]:
+              eps: float = 1e-6,
+              rescale_eps: float | None = None
+              ) -> tuple[torch.Tensor, TDOutput]:
     """Sequence double-DQN loss of the recurrent family
     (``apex_tpu/ops/losses.py:105-193``).
 
@@ -111,14 +150,21 @@ def r2d2_loss(online: nn.Module, target: nn.Module,
     terminals and on padding; ``mask`` 1 on real loss steps) and
     ``state_c``/``state_h`` ``[B, H]``, the stored state at sequence start.
     ``T = burn_in + unroll + n_steps``; the loss covers the ``unroll``
-    positions after the burn-in.
+    positions after the burn-in.  A batch with ``prev_action``/
+    ``prev_reward`` ``[B]`` (the step before the sequence) feeds both nets
+    the previous action and reward of every step (:func:`sequence_prev`).
 
     Both nets unroll the burn-in from the stored state with no gradient;
     then n-step double-DQN over the unroll, bootstrapping from the target
     net at the online argmax, a masked Huber mean per sequence weighted by
     the IS weights, and per-sequence priorities ``eta * max + (1 - eta) *
     mean + eps`` of the masked |TD|.  ``td_abs`` and ``q_taken`` in the
-    output are per-sequence means over the mask.
+    output are per-sequence means over the mask.  With ``rescale_eps``
+    (R2D2's value rescaling; None = off) the target is ``h(R + disc *
+    h^-1(Q_target(s', a*)))``, so the TD and the priorities are taken in
+    the rescaled space.  The burn-in runs inside span
+    ``apex.learner.burn_in``, the two nets' passes over the rest inside
+    ``apex.learner.unroll``.
     """
     obs = batch["obs"]
     t_total = obs.shape[1]
@@ -128,14 +174,25 @@ def r2d2_loss(online: nn.Module, target: nn.Module,
             f"sequence length {t_total} too short for burn_in={burn_in} "
             f"+ n_steps={n_steps} + at least one unroll step")
 
+    prev = sequence_prev(batch)
+
+    def run(net, lo, hi, carry):
+        """``net`` over steps ``[lo, hi)``, fed the previous action and
+        reward where the batch has them."""
+        if prev is None:
+            return net(obs[:, lo:hi], carry)
+        return net(obs[:, lo:hi], carry, tuple(p[:, lo:hi] for p in prev))
+
     carry_on = carry_tg = (batch["state_c"], batch["state_h"])
     with torch.no_grad():
         if burn_in:
-            _, carry_on = online(obs[:, :burn_in], carry_on)
-            _, carry_tg = target(obs[:, :burn_in], carry_tg)
-        body = obs[:, burn_in:]                    # [B, unroll + n, *obs]
-        qt_seq, _ = target(body, carry_tg)
-    q_seq, _ = online(body, carry_on)
+            with span("apex.learner.burn_in", LEARNER_TRACK):
+                _, carry_on = run(online, 0, burn_in, carry_on)
+                _, carry_tg = run(target, 0, burn_in, carry_tg)
+    with span("apex.learner.unroll", LEARNER_TRACK):
+        with torch.no_grad():
+            qt_seq, _ = run(target, burn_in, None, carry_tg)
+        q_seq, _ = run(online, burn_in, None, carry_on)
 
     r = batch["reward"][:, burn_in:]
     d = batch["discount"][:, burn_in:]
@@ -152,7 +209,13 @@ def r2d2_loss(online: nn.Module, target: nn.Module,
     next_target = qt_seq[:, n_steps:n_steps + unroll]
     a_star = next_online.argmax(dim=-1, keepdim=True)
     bootstrap = next_target.gather(-1, a_star)[..., 0]
-    target_q = returns + disc_prod * bootstrap
+    if rescale_eps is None:
+        target_q = returns + disc_prod * bootstrap
+    else:
+        target_q = value_rescale(
+            returns + disc_prod * inverse_value_rescale(bootstrap,
+                                                        rescale_eps),
+            rescale_eps)
 
     actions = batch["action"][:, burn_in:burn_in + unroll].long()
     q_taken = q_seq[:, :unroll].gather(-1, actions[..., None])[..., 0]

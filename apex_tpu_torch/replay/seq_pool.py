@@ -26,7 +26,7 @@ Differences, as in :mod:`apex_tpu_torch.replay.frame_pool`:
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 
@@ -34,6 +34,10 @@ from apex_tpu_torch.ops import tree as tree_ops
 from apex_tpu_torch.ops.gather import gather_rows
 from apex_tpu_torch.replay.base import PERMethods
 from apex_tpu_torch.replay.frame_pool import _BORN_STALE, _wrap_i32
+
+
+#: the per-sequence leaves of ``prev_inputs``, with their dtypes
+PREV_KEYS = {"prev_action": torch.int32, "prev_reward": torch.float32}
 
 
 @dataclass
@@ -55,6 +59,9 @@ class SequenceFramePoolState:
     f_epoch: int                # frames ever written, wrapped to int32
     size: int                   # live sequence count
     max_priority: torch.Tensor  # f32 scalar
+    # with ``prev_inputs``: ``prev_action`` i32[C] and ``prev_reward``
+    # f32[C], the action and reward of the step before each sequence
+    extras: dict = field(default_factory=dict)
 
 
 @dataclass(frozen=True)
@@ -64,7 +71,9 @@ class SequenceFramePoolReplay(PERMethods):
     ``t_total`` is the stored sequence length (burn_in + unroll +
     n_steps), ``lstm_features`` the recurrent state width and
     ``frame_shape`` one single frame (the family acts without a frame
-    stack).
+    stack).  ``prev_inputs`` stores beside each sequence's stored state
+    the action and reward of the step before it (:data:`PREV_KEYS`), for
+    a model fed the previous action and reward.
     """
 
     capacity: int                                 # sequences
@@ -75,6 +84,7 @@ class SequenceFramePoolReplay(PERMethods):
     frame_dtype: str = "uint8"
     alpha: float = 0.6
     eps: float = 1e-6
+    prev_inputs: bool = False
 
     def __post_init__(self):
         tree_ops._check_capacity(self.capacity)
@@ -107,6 +117,8 @@ class SequenceFramePoolReplay(PERMethods):
         itemsize = torch.empty((), dtype=self.torch_dtype).element_size()
         frame_bytes = self.f_capacity * self.frame_dim * itemsize
         per_seq = 4 * (5 * t + 2 * h + 1)   # 4 [T] leaves + ids, state, epoch
+        if self.prev_inputs:
+            per_seq += 4 * len(PREV_KEYS)
         tree_bytes = 2 * (2 * c) * 4
         return frame_bytes + c * per_seq + tree_bytes
 
@@ -132,6 +144,9 @@ class SequenceFramePoolReplay(PERMethods):
             min_tree=tree_ops.init_min_tree(c, dev),
             pos=0, f_epoch=0, size=0,
             max_priority=torch.tensor(1.0, device=dev),
+            extras={name: zeros(c, dtype=dtype)
+                    for name, dtype in PREV_KEYS.items()}
+            if self.prev_inputs else {},
         )
 
     # -- mutation (in place) -----------------------------------------------
@@ -143,7 +158,9 @@ class SequenceFramePoolReplay(PERMethods):
         ``chunk`` keys: ``frames`` u8[Kf, D], ``n_frames``, ``n_seqs``,
         ``obs_ref`` i32[G, T] (message-relative), ``action`` i32[G, T],
         ``reward``/``discount``/``mask`` f32[G, T], ``state_c``/``state_h``
-        f32[G, H]; numpy arrays or tensors.  ``priorities`` f32[G].  Pad
+        f32[G, H], and with ``prev_inputs`` ``prev_action`` i32[G] and
+        ``prev_reward`` f32[G]; numpy arrays or tensors.  ``priorities``
+        f32[G].  Pad
         frame rows (>= n_frames) are all-zero and land on row 0's slot,
         the message's shared zero frame; pad sequences (>= n_seqs) repeat
         the last real one: identical duplicate writes either way.
@@ -187,6 +204,8 @@ class SequenceFramePoolReplay(PERMethods):
         state.action[tidx] = put(chunk["action"], torch.int32)
         for name in ("reward", "discount", "mask", "state_c", "state_h"):
             getattr(state, name)[tidx] = put(chunk[name], torch.float32)
+        for name, dtype in PREV_KEYS.items() if self.prev_inputs else ():
+            state.extras[name][tidx] = put(chunk[name], dtype)
         state.obs_ids[tidx] = obs_ids.int()
         state.frame_epoch[tidx] = state.f_epoch
         state.pos = (state.pos + n_seqs) % c
@@ -219,6 +238,7 @@ class SequenceFramePoolReplay(PERMethods):
             mask=state.mask[idx],
             state_c=state.state_c[idx],
             state_h=state.state_h[idx],
+            **{name: leaf[idx] for name, leaf in state.extras.items()},
         )
         weights = self.is_weights(state, idx, beta, group)
         return batch, weights, idx

@@ -302,7 +302,7 @@ def spec_from_meta(meta_spec: dict) -> dict:
 def run_policy_episodes(env, policy, generator: torch.Generator,
                         episodes: int, epsilon: float, max_steps: int,
                         seed_base: int, reset_hook=None,
-                        render_hook=None) -> list[float]:
+                        render_hook=None, reward_hook=None) -> list[float]:
     """The greedy-eval episode loop (``eval.py:49-87``) shared by the
     trainers' ``evaluate`` and :func:`evaluate_checkpoint`: episode ``i``
     resets with seed ``seed_base + i``; ``policy(obs, epsilon, generator)
@@ -310,9 +310,11 @@ def run_policy_episodes(env, policy, generator: torch.Generator,
     make_policy_fn`) acts on a batch of one on the generator's device;
     integer actions step the env as an ``int``, a Box point as numpy.
     ``reset_hook()``, when given, runs before each episode (a recurrent
-    policy zeroes its carry there); ``render_hook(obs)`` sees every
-    step's observation, and its ``flush_episode()``, when it has one,
-    runs after each episode (:mod:`apex_tpu_torch.utils.render`)."""
+    policy zeroes its carry there); ``reward_hook(r)`` sees every step's
+    reward (a recurrent policy that reads the previous reward keeps it);
+    ``render_hook(obs)`` sees every step's observation, and its
+    ``flush_episode()``, when it has one, runs after each episode
+    (:mod:`apex_tpu_torch.utils.render`)."""
     rewards = []
     for ep in range(episodes):
         if reset_hook is not None:
@@ -327,6 +329,8 @@ def run_policy_episodes(env, policy, generator: torch.Generator,
             obs, r, term, trunc, _ = env.step(
                 action.cpu().numpy() if action.is_floating_point()
                 else int(action))
+            if reward_hook is not None:
+                reward_hook(float(r))
             if render_hook is not None:
                 render_hook(obs)
             total += float(r)

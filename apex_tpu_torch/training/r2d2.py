@@ -48,9 +48,12 @@ from apex_tpu_torch.actors.r2d2 import (drain_grouped,
 from apex_tpu_torch.config import ApexConfig
 from apex_tpu_torch.envs.registry import make_env, make_eval_env, num_actions
 from apex_tpu_torch.models.recurrent import (RecurrentDuelingDQN,
-                                             episodic_policy,
+                                             episodic_policy, f32_cudnn,
+                                             initial_prev,
                                              make_recurrent_policy_fn)
-from apex_tpu_torch.ops.losses import PRIORITY_ETA, make_optimizer, r2d2_loss
+from apex_tpu_torch.ops.losses import (PRIORITY_ETA, ClipAdam,
+                                       inverse_value_rescale, make_optimizer,
+                                       r2d2_loss, value_rescale)
 from apex_tpu_torch.ops.tree import stratified_offsets
 from apex_tpu_torch.replay.base import check_hbm_budget
 from apex_tpu_torch.replay.device import DeviceReplay
@@ -77,12 +80,17 @@ class SequenceBuilder:
     its loss region holds a real step.  ``pooled`` emits frame references
     (``ep_frames``, ``start``, ``end``) for
     :func:`~apex_tpu_torch.actors.r2d2.pooled_sequence_message` in place
-    of each window's padded ``obs``.
+    of each window's padded ``obs``.  ``prev_inputs`` adds each window's
+    ``prev_action`` (int32) and ``prev_reward`` (float32): the action and
+    reward of the step before its start, 0 at the episode's first step.
+    ``rescale_eps`` (None = off) takes the acting-time TDs in the value-
+    rescaled space: ``|h(r + disc * h^-1(max q')) - q[a]|``.
     """
 
     def __init__(self, burn_in: int, unroll: int, n_steps: int,
                  gamma: float, stride: int | None = None,
-                 pooled: bool = False):
+                 pooled: bool = False, prev_inputs: bool = False,
+                 rescale_eps: float | None = None):
         self.burn_in, self.unroll, self.n_steps = burn_in, unroll, n_steps
         self.t_total = burn_in + unroll + n_steps
         self.stride = stride or max(1, unroll // 2)
@@ -95,6 +103,8 @@ class SequenceBuilder:
                 f"stride={self.stride}")
         self.gamma = gamma
         self.pooled = pooled
+        self.prev_inputs = prev_inputs
+        self.rescale_eps = rescale_eps
         self._obs: list = []
         self._action: list = []
         self._reward: list = []
@@ -165,6 +175,11 @@ class SequenceBuilder:
                 state_c=c.astype(np.float32),
                 state_h=h.astype(np.float32),
             )
+            if self.prev_inputs:
+                seq["prev_action"] = np.int32(
+                    self._action[start - 1] if start else 0)
+                seq["prev_reward"] = np.float32(
+                    self._reward[start - 1] if start else 0.0)
             if self.pooled:
                 # one episode array shared by every window over it
                 seq["ep_frames"], seq["start"], seq["end"] = obs, start, end
@@ -199,11 +214,22 @@ class SequenceBuilder:
             return None
         maxq = np.asarray([float(q.max()) for q in self._q] + [0.0],
                           np.float32)
+        taken = np.asarray([self._q[t][self._action[t]] for t in range(n)],
+                           np.float32)
+        if self.rescale_eps is not None:
+            # in float32 throughout, as the learner's loss takes it
+            eps = self.rescale_eps
+            boot = inverse_value_rescale(torch.from_numpy(maxq[1:]), eps)
+            target = value_rescale(
+                torch.tensor(self._reward, dtype=torch.float32)
+                + torch.tensor(self._discount, dtype=torch.float32) * boot,
+                eps)
+            return (target - torch.from_numpy(taken)).abs().numpy()
         td = np.empty(n, np.float32)
         for t in range(n):
             td[t] = abs(self._reward[t]
                         + self._discount[t] * maxq[t + 1]
-                        - float(self._q[t][self._action[t]]))
+                        - float(taken[t]))
         return td
 
     def drain(self) -> list[dict]:
@@ -226,16 +252,20 @@ class R2D2Core(LearnerCore):
 
     burn_in: int = 8
     n_steps: int = 3
+    rescale_eps: float | None = None     # value rescaling; None = off
 
     def update_from_batch(self, train_state, batch: dict,
                           weights: torch.Tensor, group=None):
         def loss_fn():
             return r2d2_loss(train_state.params, train_state.target_params,
                              batch, weights, burn_in=self.burn_in,
-                             n_steps=self.n_steps)
+                             n_steps=self.n_steps,
+                             rescale_eps=self.rescale_eps)
 
-        return td_update(self.optimizer, self.target_update_interval,
-                         train_state, loss_fn, group)
+        # the LSTM's backward in f32 too (models/recurrent.py)
+        with f32_cudnn():
+            return td_update(self.optimizer, self.target_update_interval,
+                             train_state, loss_fn, group)
 
 
 def r2d2_env_specs(cfg: ApexConfig):
@@ -250,9 +280,32 @@ def r2d2_env_specs(cfg: ApexConfig):
         obs_is_image=len(obs_shape) == 3,
         compute_dtype=getattr(torch, cfg.learner.compute_dtype),
         scale_uint8=np.dtype(obs_dtype) == np.uint8,
-        lstm_features=cfg.r2d2.lstm_features)
+        lstm_features=cfg.r2d2.lstm_features,
+        head_width=cfg.r2d2.head_width,
+        prev_action_reward=cfg.r2d2.prev_action_reward)
     probe.close()
     return spec, obs_shape, obs_dtype
+
+
+def r2d2_rescale_eps(cfg: ApexConfig) -> float | None:
+    """The value rescaling's epsilon, None when the config has it off."""
+    return cfg.r2d2.value_rescale_eps or None
+
+
+def make_r2d2_optimizer(lc):
+    """The update rule ``learner.optimizer`` names: clip + centered
+    RMSprop with the staircase lr, or clip + Adam (optax's, b1 0.9, b2
+    0.999, ``adam_eps``) at a constant lr."""
+    if lc.optimizer == "adam":
+        return ClipAdam(lr=lc.lr, eps=lc.adam_eps,
+                        max_grad_norm=lc.max_grad_norm)
+    if lc.optimizer != "rmsprop":
+        raise ValueError(f"learner.optimizer {lc.optimizer!r}: the R2D2 "
+                         f"family takes 'rmsprop' or 'adam'")
+    return make_optimizer(
+        lr=lc.lr, decay=lc.rmsprop_decay, eps=lc.rmsprop_eps,
+        centered=lc.rmsprop_centered, max_grad_norm=lc.max_grad_norm,
+        lr_decay_steps=lc.lr_decay_steps, lr_decay_rate=lc.lr_decay_rate)
 
 
 def r2d2_uses_frame_pool(cfg: ApexConfig, obs_shape) -> bool:
@@ -291,7 +344,8 @@ def build_r2d2(cfg: ApexConfig, device: torch.device):
             lstm_features=rc.lstm_features, frame_shape=obs_shape,
             frame_capacity=r2d2_frame_capacity(cfg),
             frame_dtype=np.dtype(obs_dtype).name,
-            alpha=cfg.replay.alpha, eps=cfg.replay.eps)
+            alpha=cfg.replay.alpha, eps=cfg.replay.eps,
+            prev_inputs=rc.prev_action_reward)
         check_hbm_budget(replay.hbm_bytes(), cfg.replay.hbm_budget_gb,
                          "R2D2 replay (pooled sequence storage)",
                          cfg.replay.capacity, device)
@@ -307,20 +361,21 @@ def build_r2d2(cfg: ApexConfig, device: torch.device):
             mask=np.zeros(t_total, np.float32),
             state_c=np.zeros(rc.lstm_features, np.float32),
             state_h=np.zeros(rc.lstm_features, np.float32))
+        if rc.prev_action_reward:
+            example_item.update(prev_action=np.int32(0),
+                                prev_reward=np.float32(0.0))
         check_hbm_budget(replay.hbm_bytes(example_item),
                          cfg.replay.hbm_budget_gb,
                          "R2D2 replay (sequence storage)",
                          cfg.replay.capacity, device)
         replay_state = replay.init(example_item, device)
-    optimizer = make_optimizer(
-        lr=lc.lr, decay=lc.rmsprop_decay, eps=lc.rmsprop_eps,
-        centered=lc.rmsprop_centered, max_grad_norm=lc.max_grad_norm,
-        lr_decay_steps=lc.lr_decay_steps, lr_decay_rate=lc.lr_decay_rate)
+    optimizer = make_r2d2_optimizer(lc)
     train_state = create_train_state(model, optimizer)
     core = R2D2Core(replay=replay, optimizer=optimizer,
                     batch_size=lc.batch_size,
                     target_update_interval=lc.target_update_interval,
-                    burn_in=rc.burn_in, n_steps=lc.n_steps)
+                    burn_in=rc.burn_in, n_steps=lc.n_steps,
+                    rescale_eps=r2d2_rescale_eps(cfg))
     return (model_spec, obs_shape, obs_dtype, model, replay, replay_state,
             train_state, core)
 
@@ -342,7 +397,8 @@ def _r2d2_evaluate(self, episodes: int = 10, epsilon: float = 0.0,
     policy, reset = episodic_policy(self.model)
     rewards = run_policy_episodes(
         self._eval_env, policy, self.generator, episodes, epsilon,
-        max_steps, seed_base=self.cfg.env.seed + 1000, reset_hook=reset)
+        max_steps, seed_base=self.cfg.env.seed + 1000, reset_hook=reset,
+        reward_hook=policy.observe_reward)
     return float(np.mean(rewards))
 
 
@@ -373,9 +429,10 @@ class R2D2Trainer(CheckpointableTrainer):
         self.pooled = isinstance(self.replay, SequenceFramePoolReplay)
         self._message_fn = (pooled_sequence_message if self.pooled
                             else sequence_message)
-        self.builder = SequenceBuilder(rc.burn_in, rc.unroll, lc.n_steps,
-                                       lc.gamma, stride=rc.stride,
-                                       pooled=self.pooled)
+        self.builder = SequenceBuilder(
+            rc.burn_in, rc.unroll, lc.n_steps, lc.gamma, stride=rc.stride,
+            pooled=self.pooled, prev_inputs=rc.prev_action_reward,
+            rescale_eps=r2d2_rescale_eps(cfg))
         self._pending: list[dict] = []
         self.transitions = 0
         self.ingest_group = rc.sequence_group
@@ -416,6 +473,7 @@ class R2D2Trainer(CheckpointableTrainer):
                         else cfg.replay.warmup)
         obs, _ = self.env.reset(seed=cfg.env.seed)
         carry = self.model.initial_state(1)
+        prev = initial_prev(self.model, 1)
         episode_reward, episode_len, episode_idx = 0.0, 0, 0
         start = self.frames_rate.total
 
@@ -428,9 +486,12 @@ class R2D2Trainer(CheckpointableTrainer):
                 cc, ch = (t[0].cpu().numpy() for t in carry)
             actions, q, carry = self.policy(
                 torch.as_tensor(obs_np[None]).to(self.device), carry,
-                self.epsilon(frame), self.generator)
+                self.epsilon(frame), self.generator, prev)
             action = int(actions[0])
             next_obs, reward, terminated, truncated, _ = self.env.step(action)
+            if prev is not None:
+                prev = (actions.long(),
+                        torch.full_like(prev[1], float(reward)))
             self.builder.add_step(obs_np, action, float(reward),
                                   bool(terminated), cc, ch,
                                   q_values=q[0].cpu().numpy())
@@ -453,6 +514,7 @@ class R2D2Trainer(CheckpointableTrainer):
                     self.transitions += int(msg["n_trans"])
                 obs, _ = self.env.reset()
                 carry = self.model.initial_state(1)
+                prev = initial_prev(self.model, 1)
                 self.log.scalars({"episode_reward": episode_reward,
                                   "episode_length": episode_len}, episode_idx)
                 episode_reward, episode_len = 0.0, 0
@@ -517,10 +579,11 @@ class R2D2ApexTrainer(ConcurrentTrainer):
             t_total = rc.burn_in + rc.unroll + lc.n_steps
             obs_bytes = int(np.prod(obs_shape)) * np.dtype(obs_dtype).itemsize
             # both layouts: stacked ships G*T obs windows, pooled at most
-            # G*T+1 frame rows and the i32 obs_ref table
+            # G*T+1 frame rows and the i32 obs_ref table; per sequence the
+            # stored (c, h) and the previous action and reward
             slot = ((group * t_total + 1) * obs_bytes
                     + group * t_total * 24
-                    + group * 8 * rc.lstm_features + 65536)
+                    + group * (8 * rc.lstm_features + 8) + 65536)
             pool = ActorPool(cfg, self.model_spec, chunk_transitions=group,
                              worker_fn=worker, shm_slot_bytes=slot)
         self.pool = pool
