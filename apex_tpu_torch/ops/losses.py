@@ -242,6 +242,11 @@ class RMSpropState:
     count: int = 0                                      # updates taken
     mu: list = field(default_factory=list)              # first moments
     nu: list = field(default_factory=list)              # second moments
+    #: ``(rate, tensor)``: the learning rate last written and the 0-d f32
+    #: tensor on the moments' device that holds it
+    #: (:meth:`ClipRMSprop.lr_tensor`).  Not a field: checkpoints and
+    #: conversions carry ``count``, which sets it again.
+    lr_held = None
 
 
 @dataclass(frozen=True)
@@ -267,14 +272,43 @@ class ClipRMSprop:
             return self.lr
         return self.lr * self.lr_decay_rate ** (count // self.lr_decay_steps)
 
+    def lr_tensor(self, state: RMSpropState,
+                  device: torch.device) -> torch.Tensor:
+        """The learning rate at ``state.count`` as a 0-d f32 tensor on
+        ``device``, held by ``state`` at one address.  The host writes it
+        (one fill) when the rate changes, at a staircase step or under a
+        new base rate, and never reads it back, so a captured update
+        reads the current rate."""
+        rate = self.learning_rate(state.count)
+        held = state.lr_held
+        if held is None or held[1].device != device:
+            state.lr_held = (rate, torch.full((), rate, dtype=torch.float32,
+                                              device=device))
+        elif held[0] != rate:
+            held[1].fill_(rate)
+            state.lr_held = (rate, held[1])
+        return state.lr_held[1]
+
     @torch.no_grad()
     def step(self, params: list[torch.Tensor], grads: list[torch.Tensor],
              state: RMSpropState) -> torch.Tensor:
         """One update of ``params`` and ``state`` in place.  Returns the
         global norm of the unclipped ``grads``."""
+        norm = self.apply(params, grads, state,
+                          self.lr_tensor(state, params[0].device))
+        state.count += 1
+        return norm
+
+    @torch.no_grad()
+    def apply(self, params: list[torch.Tensor], grads: list[torch.Tensor],
+              state: RMSpropState, lr: torch.Tensor) -> torch.Tensor:
+        """The device half of :meth:`step`: clip, then RMSprop of
+        ``params`` and ``state``'s moments in place at the rate ``lr`` (a
+        0-d tensor), with no host work, so a CUDA graph can hold it.
+        ``p - lr * u`` rounds as optax's ``p + (-lr) * u``.  Returns the
+        global norm of the unclipped ``grads``."""
         norm = global_norm(grads)
         keep = norm < self.max_grad_norm
-        lr = self.learning_rate(state.count)
         d = self.decay
         for p, g, mu, nu in zip(params, grads, state.mu, state.nu):
             g = torch.where(keep, g, g / norm * self.max_grad_norm)
@@ -284,8 +318,7 @@ class ClipRMSprop:
                 scaling = torch.rsqrt(nu - mu * mu + self.eps)
             else:
                 scaling = torch.rsqrt(nu + self.eps)
-            p.add_(-lr * (scaling * g))
-        state.count += 1
+            p.sub_(lr * (scaling * g))
         return norm
 
 

@@ -12,6 +12,13 @@ the step written by hand are the frame-ring gather inside
 segment-tree update (:mod:`apex_tpu_torch.ops.tree`), one launch for both
 trees at ingest and one at the priority write-back.
 
+On the card, :meth:`LearnerCore.update_from_batch` (forwards, loss,
+``autograd.grad``, clip and RMSprop) is one CUDA graph
+(:class:`UpdateGraph`), captured at the second update of a batch layout
+over the same parameter and optimizer tensors (:func:`graph_key`) and
+replayed from then on: one launch where the eager update makes over four
+hundred.  ``GRAPH_COUNTS`` counts the captures, replays and eager updates.
+
 Where the JAX step takes a PRNG key, these take ``offsets``: the
 per-stratum uniforms of the PER sample (``f32[B]`` in ``[0, 1)``), drawn
 by the caller from a ``torch.Generator``.
@@ -19,7 +26,7 @@ by the caller from a ``torch.Generator``.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -35,6 +42,124 @@ from apex_tpu_torch.training.state import TrainState, create_train_state
 
 ReplayStates = FramePoolState | ReplayState
 
+#: updates of :meth:`LearnerCore.update_from_batch` by kind: graphs
+#: captured, graph replays (the capturing update's included) and eager
+#: updates (the CPU's, a dp group's, the first of each graph key's)
+GRAPH_COUNTS = {"capture": 0, "replay": 0, "eager": 0}
+
+#: the update's metrics (:func:`td_update`), in the order an
+#: :class:`UpdateGraph` keeps them
+METRICS = ("loss", "grad_norm", "q_mean", "td_mean")
+
+
+def _metrics(aux, grad_norm: torch.Tensor) -> dict:
+    """The update's :data:`METRICS` of one rank's loss output and norm."""
+    return dict(zip(METRICS, (aux.loss, grad_norm, aux.q_taken.mean(),
+                              aux.td_abs.mean())))
+
+
+def _views(batch: dict) -> dict:
+    """``{name: owner}`` of the batch tensors that view another batch
+    tensor, a contiguous one (``obs`` and ``next_obs`` as the halves of
+    ``obs_pair``)."""
+    ids = {id(t): name for name, t in batch.items()}
+    return {name: ids[id(t._base)] for name, t in batch.items()
+            if t._base is not None and id(t._base) in ids
+            and t._base.is_contiguous()}
+
+
+def static_batch(batch: dict) -> tuple[dict, dict]:
+    """Static copies of ``batch`` for a captured update: ``(inputs,
+    static)``, ``inputs`` a clone of each tensor that views no other
+    (what each replay copies into), ``static`` the batch over them, where
+    a view of another batch tensor views that tensor's clone alike."""
+    views = _views(batch)
+    inputs = {name: t.clone() for name, t in batch.items()
+              if name not in views}
+    static = dict(inputs)
+    for name, owner in views.items():
+        t = batch[name]
+        static[name] = inputs[owner].as_strided(
+            t.shape, t.stride(),
+            t.storage_offset() - batch[owner].storage_offset())
+    return inputs, {name: static[name] for name in batch}
+
+
+def graph_key(train_state: TrainState, batch: dict,
+              weights: torch.Tensor) -> tuple:
+    """What a captured update is bound to: the batch's layout (names,
+    shapes, dtypes, strides and which tensor views which, at what offset)
+    and ``weights``' shape, and the storage of every tensor it updates or
+    reads in place: the online and target parameters, RMSprop's moments
+    and learning rate (:meth:`ClipRMSprop.lr_tensor`, set before)."""
+    views = _views(batch)
+    layout = tuple(
+        (name, tuple(t.shape), t.dtype, t.stride(), views.get(name),
+         t.storage_offset() - batch[views[name]].storage_offset()
+         if name in views else 0)
+        for name, t in batch.items())
+    opt = train_state.opt_state
+    held = opt.lr_held
+    tensors = [*train_state.params.parameters(),
+               *train_state.target_params.parameters(), *opt.mu, *opt.nu]
+    return (layout, tuple(weights.shape),
+            tuple(t.data_ptr() for t in tensors),
+            None if held is None else held[1].data_ptr())
+
+
+def graph_engages(train_state: TrainState, group) -> bool:
+    """Whether :meth:`LearnerCore.update_from_batch` takes its graph:
+    with CUDA parameters and no dp group."""
+    return group is None and next(train_state.params.parameters()).is_cuda
+
+
+def _advance(train_state: TrainState, target_update_interval: int) -> None:
+    """Count the update; copy the online weights into the target net in
+    place when the count is a multiple of ``target_update_interval``."""
+    train_state.step += 1
+    if train_state.step % target_update_interval == 0:
+        with torch.no_grad():
+            for tgt, src in zip(train_state.target_params.parameters(),
+                                train_state.params.parameters()):
+                tgt.copy_(src)
+
+
+class UpdateGraph:
+    """The DQN update captured as one CUDA graph: both nets' forwards, the
+    loss, ``autograd.grad``, the global norm, the clip and RMSprop, in
+    place on the live parameters and moments.  Its inputs are static
+    copies of the batch (:func:`static_batch`) and weights; its output,
+    the priorities then :data:`METRICS`, one static tensor.  Captured
+    with ``thread_local`` errors, so threads that launch on their own
+    streams meanwhile (the staging thread, the rollout engine) may, as
+    long as they draw from generators of their own (the capture holds
+    the default CUDA generator); its memory is a pool of its own."""
+
+    def __init__(self, optimizer: ClipRMSprop, train_state: TrainState,
+                 batch: dict, weights: torch.Tensor, lr: torch.Tensor):
+        self.inputs, static = static_batch(batch)
+        self.weights = weights.clone()
+        params = list(train_state.params.parameters())
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+            loss, aux = double_dqn_loss(train_state.params,
+                                        train_state.target_params, static,
+                                        self.weights)
+            grads = torch.autograd.grad(loss, params)
+            grad_norm = optimizer.apply(params, grads, train_state.opt_state,
+                                        lr)
+            self.out = torch.cat([aux.priorities, torch.stack(
+                list(_metrics(aux, grad_norm).values()))])
+
+    def replay(self, batch: dict, weights: torch.Tensor) -> torch.Tensor:
+        """Copy ``batch`` and ``weights`` in, replay, and return a copy of
+        the output (the next replay overwrites it)."""
+        for name, t in self.inputs.items():
+            t.copy_(batch[name])
+        self.weights.copy_(weights)
+        self.graph.replay()
+        return self.out.clone()
+
 
 @dataclass(frozen=True)
 class LearnerCore:
@@ -45,18 +170,58 @@ class LearnerCore:
     optimizer: ClipRMSprop
     batch_size: int = 512
     target_update_interval: int = 2500
+    # {graph_key: UpdateGraph, or None after the key's first, eager update}
+    # for the last key seen; a new key drops the graph of the old one
+    _graph: dict = field(default_factory=dict, init=False, repr=False,
+                         compare=False)
 
     def update_from_batch(self, train_state: TrainState, batch: dict,
                           weights: torch.Tensor, group=None):
         """The update body, see :func:`td_update` (``group``: the dp group
-        whose ranks mean their gradients and metrics)."""
+        whose ranks mean their gradients and metrics), inside span
+        ``apex.learner.update``.  With CUDA parameters and no ``group``
+        it runs eagerly at the first update of a :func:`graph_key`, which
+        warms what a capture needs (cuBLAS, cuDNN, autocast), captures an
+        :class:`UpdateGraph` at the second and replays it from then on."""
+        with span("apex.learner.update", LEARNER_TRACK):
+            params = train_state.params
+            if graph_engages(train_state, group):
+                lr = self.optimizer.lr_tensor(
+                    train_state.opt_state, next(params.parameters()).device)
+                key = graph_key(train_state, batch, weights)
+                if key in self._graph:
+                    return self._replayed(key, lr, train_state, batch,
+                                          weights)
+                self._graph.clear()
+                self._graph[key] = None
+            GRAPH_COUNTS["eager"] += 1
 
-        def loss_fn():
-            return double_dqn_loss(train_state.params,
-                                   train_state.target_params, batch, weights)
+            def loss_fn():
+                return double_dqn_loss(params, train_state.target_params,
+                                       batch, weights)
 
-        return td_update(self.optimizer, self.target_update_interval,
-                         train_state, loss_fn, group)
+            return td_update(self.optimizer, self.target_update_interval,
+                             train_state, loss_fn, group)
+
+    def _replayed(self, key: tuple, lr: torch.Tensor,
+                  train_state: TrainState, batch: dict,
+                  weights: torch.Tensor):
+        """The update as a replay of ``key``'s graph, captured first if
+        this is the key's second update; the host does the rest: the
+        counts and the target sync."""
+        with span("apex.learner.loss", LEARNER_TRACK):
+            graph = self._graph[key]
+            if graph is None:
+                graph = self._graph[key] = UpdateGraph(
+                    self.optimizer, train_state, batch, weights, lr)
+                GRAPH_COUNTS["capture"] += 1
+            out = graph.replay(batch, weights)
+            GRAPH_COUNTS["replay"] += 1
+        with span("apex.learner.optimizer", LEARNER_TRACK):
+            train_state.opt_state.count += 1
+            _advance(train_state, self.target_update_interval)
+        b = weights.shape[0]
+        return train_state, out[:b], dict(zip(METRICS, out[b:]))
 
     def train_step(self, train_state: TrainState, replay_state: ReplayStates,
                    offsets: torch.Tensor, beta: float):
@@ -129,21 +294,10 @@ def td_update(optimizer: ClipRMSprop, target_update_interval: int,
                                    aux.td_abs.mean()])
             group.all_reduce_mean_(grads + [scalars])
         grad_norm = optimizer.step(params, grads, train_state.opt_state)
-
-        train_state.step += 1
-        if train_state.step % target_update_interval == 0:
-            with torch.no_grad():
-                for tgt, src in zip(train_state.target_params.parameters(),
-                                    params):
-                    tgt.copy_(src)
+        _advance(train_state, target_update_interval)
 
     if scalars is None:
-        metrics = {
-            "loss": aux.loss,
-            "grad_norm": grad_norm,
-            "q_mean": aux.q_taken.mean(),
-            "td_mean": aux.td_abs.mean(),
-        }
+        metrics = _metrics(aux, grad_norm)
     else:
         metrics = {"loss": scalars[0], "grad_norm": grad_norm,
                    "q_mean": scalars[1], "td_mean": scalars[2]}

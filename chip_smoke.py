@@ -14,6 +14,16 @@ Phases, each of which exits nonzero on failure before any result line:
 3. reference -- a small learner (42x42 Catch frames, f32, TF32 off) run
    on the card and on the CPU from the same weights, chunks and sample
    uniforms: batches bit-exact, losses and weights within tolerance.
+3b. graph  -- the DQN update as one CUDA graph (``LearnerCore.
+   update_from_batch``) against the eager ``td_update`` from the same
+   state and batches, at full width (84x84x4 u8, batch 512, bf16), over
+   12 updates with the learning rate's stage changing every 4 and the
+   target synced every 5: weights, moments, learning rate, target,
+   priorities and metrics bit-equal under deterministic cuDNN, and within
+   the benchmark's ``loss_gap`` and ``update_gap`` limits without it.  A
+   batch of another shape recaptures; a capture succeeds while a second
+   thread allocates and launches on its own stream; prints the update's
+   host ms (and device ms), eager against replayed.
 4. slice   -- the Ape-X frame-pool learner (``ApexTrainer``) at full
    width on ``ApexCatch-v0``: 84x84x1 u8 frames, stack 4, batch 512,
    capacity 2^19, frame ring 2^20, 512-transition / 528-frame chunks
@@ -862,6 +872,241 @@ def reference_phase(dev) -> None:
     torch.backends.cudnn.allow_tf32 = tf32
     log(f"reference: card vs CPU learner agree over {len(chunks) - 1} fused "
         f"steps (losses {out['cuda'][1]})")
+
+
+# -- phase 3b: the graphed update -------------------------------------------
+
+GRAPH_STEPS = 12             # updates compared, graphed against eager
+GRAPH_TIMED = 40             # updates timed on each side
+# the benchmark's limits of correct (portbench/limits/apex-dqn.host-actors)
+GRAPH_LOSS_GAP, GRAPH_UPDATE_GAP = 0.005, 0.1
+
+
+def _update_batches(dev, n: int, b: int, seed: int) -> list:
+    """``n`` full-width batches drawn on the card, obs and next_obs the
+    halves of one ``obs_pair`` as the frame pool samples them, with IS
+    weights: ``[(batch, weights)]``."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    out = []
+    for _ in range(n):
+        pair = torch.randint(0, 256, (2 * b, 84, 84, STACK), generator=gen,
+                             device=dev, dtype=torch.uint8)
+        live = torch.rand(b, generator=gen, device=dev) >= 0.1
+        batch = dict(
+            obs=pair[:b],
+            action=torch.randint(0, 3, (b,), generator=gen, device=dev,
+                                 dtype=torch.int32),
+            reward=torch.randn(b, generator=gen, device=dev),
+            next_obs=pair[b:], discount=live.float() * 0.99 ** 3,
+            obs_pair=pair)
+        weights = 0.2 + 0.8 * torch.rand(b, generator=gen, device=dev)
+        out.append((batch, weights))
+    return out
+
+
+def _graph_sides(dev):
+    """A graphed learner (``LearnerCore``) and an eager one (``td_update``
+    on the same core's optimizer) from one full-width state: each a
+    ``(step, train_state)``, ``step(batch, weights)`` returning
+    ``(priorities, metrics)``."""
+    import copy
+
+    from apex_tpu_torch.models.dueling import DuelingDQN
+    from apex_tpu_torch.ops.losses import double_dqn_loss, make_optimizer
+    from apex_tpu_torch.training.learner import LearnerCore, td_update
+    from apex_tpu_torch.training.state import create_train_state
+
+    model = DuelingDQN(3, (84, 84, STACK),
+                       generator=torch.Generator().manual_seed(SEED))
+    opt = make_optimizer(lr=1e-4, lr_decay_steps=4, lr_decay_rate=0.5)
+    core = LearnerCore(replay=None, optimizer=opt, batch_size=BATCH,
+                       target_update_interval=5)
+    ts_g = create_train_state(model.to(dev), opt)
+    ts_e = copy.deepcopy(ts_g)
+
+    def graphed(batch, weights):
+        _, prios, m = core.update_from_batch(ts_g, batch, weights)
+        return prios, m
+
+    def eager(batch, weights):
+        def loss_fn():
+            return double_dqn_loss(ts_e.params, ts_e.target_params, batch,
+                                   weights)
+        _, prios, m = td_update(opt, core.target_update_interval, ts_e,
+                                loss_fn)
+        return prios, m
+
+    return (graphed, ts_g), (eager, ts_e)
+
+
+def _graph_run(dev, batches: list, what: str, exact: bool,
+               during=None) -> dict:
+    """The two sides of :func:`_graph_sides` over ``batches``; ``during``,
+    if given, is called between the first and the second update (the
+    capture's) and returns a callable called after it.  Checks them bit
+    for bit (``exact``) or within the benchmark's limits; returns the
+    gaps and the graph counts of the run."""
+    from apex_tpu_torch.training.learner import GRAPH_COUNTS
+
+    (graphed, ts_g), (eager, ts_e) = _graph_sides(dev)
+    init = [p.detach().clone() for p in ts_g.params.parameters()]
+    before = dict(GRAPH_COUNTS)
+    outs = {"graphed": [], "eager": []}
+    after = None
+    for i, (batch, weights) in enumerate(batches):
+        if i == 1 and during is not None:
+            after = during()
+        for name, step in (("graphed", graphed), ("eager", eager)):
+            prios, m = step(batch, weights)
+            outs[name].append((prios.clone(), {k: v.clone()
+                                               for k, v in m.items()}))
+        if after is not None:
+            after()
+            after = None
+    torch.cuda.synchronize()
+    counts = {k: GRAPH_COUNTS[k] - before[k] for k in GRAPH_COUNTS}
+    n = len(batches)
+    check(counts == {"capture": 1, "replay": n - 1, "eager": 1},
+          f"graph ({what}): counts {counts}, want one eager update, one "
+          f"capture and {n - 1} replays")
+    state = {}
+    for name, ts in (("graphed", ts_g), ("eager", ts_e)):
+        state[name] = dict(
+            params=list(ts.params.parameters()),
+            target=list(ts.target_params.parameters()),
+            mu=ts.opt_state.mu, nu=ts.opt_state.nu,
+            lr=[ts.opt_state.lr_held[1]],
+            prios=[p for p, _ in outs[name]],
+            metrics=[m[k] for _, m in outs[name] for k in m])
+        check(ts.opt_state.count == ts.step == n,
+              f"graph ({what}): {name} counted {ts.opt_state.count} / "
+              f"{ts.step} updates of {n}")
+    gaps = {}
+    if exact:
+        for part, tensors in state["graphed"].items():
+            check(all(torch.equal(a, b) for a, b in
+                      zip(tensors, state["eager"][part])),
+                  f"graph ({what}): {part} differ, graphed against eager")
+    else:
+        losses = [[float(m["loss"]) for _, m in outs[k]]
+                  for k in ("graphed", "eager")]
+        gaps["loss_gap"] = max(abs(a - b) / max(abs(b), 1e-30)
+                               for a, b in zip(*losses))
+        delta = [[(p.detach().float() - p0.float()).norm().item()
+                  for p, p0 in zip(state[k]["params"], init)]
+                 for k in ("graphed", "eager")]
+        med = statistics.median(delta[1])
+        gaps["update_gap"] = max(abs(a - b) / max(b, med, 1e-30)
+                                 for a, b in zip(*delta))
+        check(gaps["loss_gap"] <= GRAPH_LOSS_GAP
+              and gaps["update_gap"] <= GRAPH_UPDATE_GAP,
+              f"graph ({what}): {gaps} over the limits "
+              f"{GRAPH_LOSS_GAP} / {GRAPH_UPDATE_GAP}")
+    return dict(gaps=gaps, counts=counts,
+                losses=[float(m["loss"]) for _, m in outs["graphed"]])
+
+
+def _second_thread(dev) -> dict:
+    """A thread that allocates, draws and launches on a stream of its own
+    until stopped, syncing that stream each time; ``{"start": fn}``,
+    ``fn()`` starting it and returning the stop, which checks it ran all
+    through the capture.  It draws from a generator of its own, as the
+    program's threads do: the capture holds the default CUDA generator."""
+    import threading
+
+    state = {"n": 0, "stop": threading.Event(), "error": None}
+
+    def work():
+        try:
+            stream = torch.cuda.Stream(device=dev)
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(SEED)
+            with torch.cuda.stream(stream):
+                while not state["stop"].is_set():
+                    x = torch.randn(1 << 20, device=dev, generator=gen)
+                    # a sync of this thread's stream in every iteration
+                    (x @ x).item()  # apexlint: disable=T006
+                    state["n"] += 1
+        except Exception as exc:     # noqa: BLE001 -- reported below
+            state["error"] = repr(exc)
+
+    def start():
+        thread = threading.Thread(target=work, daemon=True)
+        thread.start()
+        while state["n"] < 3 and thread.is_alive():
+            time.sleep(0.001)
+        n0 = state["n"]
+
+        def stop():
+            n1 = state["n"]
+            state["stop"].set()
+            thread.join(timeout=30)
+            check(not thread.is_alive() and state["error"] is None,
+                  f"graph: the second thread failed: {state['error']}")
+            check(n1 > n0, "graph: the second thread made no launch during "
+                           "the capture")
+            state["during"] = n1 - n0
+
+        return stop
+
+    state["start"] = start
+    return state
+
+
+def _update_host_ms(dev, batches: list) -> dict:
+    """Median host ms of one update call, and device ms between events
+    around it, eager (``td_update``) against replayed, each call
+    synchronised outside its timing."""
+    (graphed, _), (eager, _) = _graph_sides(dev)
+    out = {}
+    for name, step in (("eager", eager), ("replayed", graphed)):
+        host, device = [], []
+        for i in range(GRAPH_TIMED + 2):
+            batch, weights = batches[i % len(batches)]
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            t0 = time.perf_counter()
+            step(batch, weights)
+            t1 = time.perf_counter()
+            end.record()
+            torch.cuda.synchronize()
+            if i >= 2:               # the graph's eager update and capture
+                host.append((t1 - t0) * 1e3)
+                device.append(start.elapsed_time(end))
+        out[name] = (statistics.median(host), statistics.median(device))
+    return out
+
+
+def graph_phase(dev) -> dict:
+    """Phase 3b (module docstring)."""
+    deterministic = torch.backends.cudnn.deterministic
+    batches = _update_batches(dev, GRAPH_STEPS, BATCH, SEED)
+    try:
+        torch.backends.cudnn.deterministic = True
+        exact = _graph_run(dev, batches, "deterministic", exact=True)
+        small = _update_batches(dev, 3, BATCH // 2, SEED + 1)
+        _graph_run(dev, small, f"batch {BATCH // 2}", exact=True)
+        thread = _second_thread(dev)
+        _graph_run(dev, batches[:3], "beside a second thread", exact=True,
+                   during=thread["start"])
+        torch.backends.cudnn.deterministic = False
+        loose = _graph_run(dev, batches, "cuDNN's default", exact=False)
+        times = _update_host_ms(dev, batches)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    log(f"graph: {GRAPH_STEPS} updates graphed == eager bit for bit "
+        f"(counts {exact['counts']}; losses {exact['losses'][:3]}...); "
+        f"batch {BATCH // 2} recaptured; captured beside a thread's "
+        f"{thread['during']} launches; without deterministic cuDNN "
+        f"loss_gap {loose['gaps']['loss_gap']:.3g}, update_gap "
+        f"{loose['gaps']['update_gap']:.3g}")
+    log("graph: update host ms (device ms) eager "
+        f"{times['eager'][0]:.3f} ({times['eager'][1]:.3f}) vs replayed "
+        f"{times['replayed'][0]:.3f} ({times['replayed'][1]:.3f})")
+    return dict(gaps=loose["gaps"], host_ms=times)
 
 
 # -- phase 4: the slice ----------------------------------------------------
@@ -6744,6 +6989,8 @@ def main() -> int:
     mark("kernels")
     reference_phase(dev)
     mark("reference")
+    graph_phase(dev)
+    mark("graph")
     result = slice_phase(dev, gather, args.profile)
     msgs = result.pop("msgs")
     torch.cuda.empty_cache()

@@ -239,8 +239,9 @@ def test_apex_trainer_refuses_an_oversized_replay():
 # -- program spans -------------------------------------------------------------
 
 LEARNER_PHASES = ("apex.learner.dispatch", "apex.learner.ingest",
-                  "apex.learner.sample", "apex.learner.loss",
-                  "apex.learner.optimizer", "apex.learner.priorities")
+                  "apex.learner.sample", "apex.learner.update",
+                  "apex.learner.loss", "apex.learner.optimizer",
+                  "apex.learner.priorities")
 
 
 def _apex_ranges(prof) -> list:
@@ -259,7 +260,8 @@ def _cpu_profiler():
 def test_a_fused_step_lays_its_phase_ranges_inside_its_dispatch():
     """Under a profiler started with ``.start()``, as the benchmark starts
     it: one fused step's five phases appear once each, in step order,
-    disjoint and inside the dispatch's range."""
+    disjoint and inside the dispatch's range, and the update's range
+    holds its two (loss, optimizer)."""
     trainer = ApexTrainer(_small_cfg(), device="cpu")
     msgs = _messages(trainer, 3)
     for msg in msgs[:2]:                   # the warm-up fill: ingest only
@@ -274,7 +276,11 @@ def test_a_fused_step_lays_its_phase_ranges_inside_its_dispatch():
     assert [name for _, _, name in ranges] == list(LEARNER_PHASES)
     (d0, d1, _), *phases = ranges
     assert all(d0 <= s <= t <= d1 for s, t, _ in phases)
+    (u0, u1, _), = [r for r in phases if r[2] == "apex.learner.update"]
+    phases = [r for r in phases if r[2] != "apex.learner.update"]
     assert all(a[1] <= b[0] for a, b in zip(phases, phases[1:]))
+    assert all(u0 <= s <= t <= u1 for s, t, name in phases
+               if name in ("apex.learner.loss", "apex.learner.optimizer"))
 
 
 def _state_equal(a, b) -> bool:
