@@ -66,15 +66,15 @@ over the mesh, each rank of :mod:`apex_tpu_torch.parallel` runs its own
 * the episode tallies come back in global lane order, with each rank's
   shard size, through one host all-gather per dispatch.
 
-:class:`FusedApexTrainer` at dp > 1 is rank 0: it sends the other ranks a
-``fused`` op per dispatch (and the host plan's ``ingest`` op for a hybrid
-pool's chunks), and runs the ranks' lifecycle of
-:class:`~apex_tpu_torch.training.apex.ConcurrentTrainer`.
+:class:`FusedApexTrainer` runs the one concurrent loop,
+:meth:`~apex_tpu_torch.training.apex.ConcurrentTrainer.train`, with one
+:meth:`FusedStep.dispatch` as its iteration's body.  At dp > 1 it is
+rank 0: its body sends the other ranks a ``fused`` op per dispatch (and
+the host plan's ``ingest`` op for a hybrid pool's chunks), and the loop
+runs the ranks' lifecycle.
 """
 
 from __future__ import annotations
-
-import time
 
 import numpy as np
 import torch
@@ -83,14 +83,10 @@ from apex_tpu_torch.actors.pool import EpisodeStat
 from apex_tpu_torch.config import ApexConfig
 from apex_tpu_torch.envs.device_envs import make_device_env
 from apex_tpu_torch.fleet.heartbeat import HeartbeatEmitter
-from apex_tpu_torch.fleet.registry import FleetRegistry
-from apex_tpu_torch.obs import spans as obs_spans
-from apex_tpu_torch.obs.trace import get_ring, set_process_label
 from apex_tpu_torch.parallel.aggregate import split_group
 from apex_tpu_torch.training.anakin import (acting_priorities, host_arrays,
                                             make_anakin_engine)
 from apex_tpu_torch.training.apex import ApexTrainer
-from apex_tpu_torch.utils.profiling import DispatchGapTimer
 
 __all__ = ["FusedApexTrainer", "FusedStep", "acting_priorities"]
 
@@ -403,15 +399,18 @@ class _IdlePool:
 
 
 class FusedApexTrainer(ApexTrainer):
-    """The ``train()`` driver whose hot loop is one :class:`FusedStep`
-    dispatch per iteration (``apex_tpu/ondevice/fused.py:512-729``).
+    """The concurrent loop (:meth:`~apex_tpu_torch.training.apex.
+    ConcurrentTrainer.train`) with one :class:`FusedStep` dispatch as its
+    iteration (``apex_tpu/ondevice/fused.py:512-729``); ``train()`` may
+    overshoot ``total_steps`` by up to ``steps_per_dispatch *
+    train_per_step - 1``.
 
     It reuses the :class:`ApexTrainer` substrate: model, replay and
     optimizer construction, the checkpoint bundle (the replay state is the
-    on-device pool), the publish cadence and the log.  A ``pool`` that is
-    given keeps its chunks flowing in: they are ingested into the same
-    replay between dispatches (hybrid mode).  ``device`` defaults to the
-    card.  An env without a device port refuses here, naming its id.  A
+    on-device pool), and the loop's session, cadence and log.  A ``pool``
+    that is given keeps its chunks flowing in: they are ingested into the
+    same replay between dispatches (hybrid mode).  ``device`` defaults to
+    the card.  An env without a device port refuses here, naming its id.  A
     socket pool (the learner role's ``--rollout fused``) serves its
     evaluators and host actors this way, stamped with the learner epoch
     and republished until the first step.  The fleet plane is the
@@ -426,6 +425,8 @@ class FusedApexTrainer(ApexTrainer):
     own the lane blocks ``lanes=(rank, world)`` names; the batch and the
     env lanes must split evenly over the ranks, and the ``ValueError``
     names both knobs."""
+
+    gap_track = "learner-fused-loop"
 
     def __init__(self, config: ApexConfig | None = None, pool=None,
                  train_ratio: float | None = None,
@@ -503,147 +504,53 @@ class FusedApexTrainer(ApexTrainer):
         super()._apply_dp_counters(counters)
         self.fused.sync_ingested(self.ingested, steps=self.steps_rate.total)
 
-    def train(self, total_steps: int, max_seconds: float = 3600.0,
-              log_every: int = 200):
-        """Run at least ``total_steps`` more learner updates: a dispatch
-        may overshoot by up to ``steps_per_dispatch * train_per_step - 1``.
-        Stops early at ``max_seconds`` or :meth:`request_stop`.  At dp > 1
-        the first call starts the other ranks, which park between calls."""
-        cfg = self.cfg
-        pool = self.pool
-        target_steps = self.steps_rate.total + total_steps
-        set_process_label("learner")
-        ring = get_ring()
-        if self._obs is None:
-            self._obs = obs_spans.LearnerObs(ring=ring)
-        gap = self._dispatch_gap = DispatchGapTimer(
-            ring=ring, track="learner-fused-loop")
-        if self.fleet is None:
-            self.fleet = FleetRegistry(cfg.comms)
-        try:
-            if self.n_dp > 1:
-                self._dp_open()
-            self._start_pool()
-        except BaseException:
-            self._dp_end(graceful=False)
-            raise
-        set_epoch = getattr(pool, "set_learner_epoch", None)
-        if set_epoch is not None:
-            set_epoch(self.learner_epoch)
-        self._start_status_server()
-        # the fused plane beats into the registry like AnakinPool's
-        # ondevice-0, so the status table shows it beside socket peers
-        beat = HeartbeatEmitter(
+    def _open_feed(self) -> None:
+        """The fused step is this loop's feed: no staging thread
+        (``learner.ingest_pipeline`` does not apply).  The fused plane
+        beats into the registry like AnakinPool's ondevice-0, so the
+        status table shows it beside socket peers."""
+        self._beat = HeartbeatEmitter(
             "fused-0", role="rollout",
-            interval_s=cfg.comms.heartbeat_interval_s,
+            interval_s=self.cfg.comms.heartbeat_interval_s,
             gauges_fn=self.fused.counters)
-        finished = False
-        try:
-            self._publish()
-            last_publish = time.monotonic()
-            t_end = last_publish + max_seconds
-            last_pub_step = self.steps_rate.total
-            last_health = last_rank_check = last_publish
-            self._episode_idx = 0
-            metrics = None
-            while self.steps_rate.total < target_steps:
-                now = time.monotonic()
-                stop = self._stop_requested
-                if now > t_end or (stop is not None and stop.is_set()):
-                    break
-                if self._ranks is not None and now - last_rank_check >= 0.5:
-                    # a dead rank fails train() here, not in a collective
-                    # that waits out its timeout
-                    self._ranks.check()
-                    last_rank_check = now
-                gap.about_to_dispatch()
-                if self._dp is not None:
-                    self._dp_send("fused")
-                info = self._fused_dispatch()
-                gap.dispatch_returned()
-                if info["train_steps"]:
-                    self.steps_rate.tick(info["train_steps"])
-                    metrics = info["metrics"]
-                self.ingested += info["transitions"]
-                self.frames_rate.tick(info["transitions"])
-                for stat in info["stats"]:
-                    stat.param_version = self.param_version
-                    self.log.scalars(
-                        {"episode_reward": stat.reward,
-                         "episode_length": stat.length,
-                         "actor_id": stat.actor_id}, self._episode_idx)
-                    self._episode_idx += 1
-                # hybrid: a given pool's chunks (a group of one per rank
-                # at dp > 1) are ingested between dispatches; the fused
-                # step owns the train cadence
-                for msg in pool.poll_chunks(64, timeout=0):
-                    n_new = int(msg["n_trans"])
-                    if self.n_dp > 1:
-                        parts = split_group(msg["payload"],
-                                            msg["priorities"], self.n_dp)
-                        self._dp_dispatch("ingest", *parts[0], parts[1:],
-                                          n_new)
-                    else:
-                        self.replay_state = self.core.ingest(
-                            self.replay_state, msg["payload"],
-                            msg["priorities"])
-                    self.ingested += n_new
-                    self.frames_rate.tick(n_new)
-                    self.fused.note_external_ingest(n_new)
-                beat.tick(info["frames"])
-                hb = beat.maybe_beat(self.param_version)
-                if hb is not None:
-                    self.fleet.observe(hb)
+        return None
 
-                steps = self.steps_rate.total
-                if (self.checkpointer is not None
-                        and steps - self._last_save
-                        >= cfg.learner.save_interval):
-                    self.save_checkpoint()
-                    self._last_save = steps
-                if steps:
-                    due = (now - last_publish >= self.publish_min_seconds
-                           and (steps - last_pub_step
-                                >= cfg.learner.publish_interval
-                                or now - last_publish
-                                > 10 * self.publish_min_seconds))
-                else:
-                    # a socket pool's late SUB never sees a publish made
-                    # before it joined: republish until the first step
-                    due = (getattr(pool, "needs_warmup_republish", False)
-                           and now - last_publish
-                           > 10 * self.publish_min_seconds)
-                if due:
-                    self._publish()
-                    last_publish = now
-                    last_pub_step = steps
-                if self.respawn_workers and now - last_health >= 5.0:
-                    self._health_tick(steps)
-                    last_health = now
-                self._drain_stats(steps)
-                if metrics is not None \
-                        and steps - self._last_log >= log_every:
-                    self.log.scalars(
-                        dict(metrics)
-                        | {"bps": self.steps_rate.rate,
-                           "fps": self.frames_rate.rate,
-                           "param_version": self.param_version,
-                           "ingested": self.ingested} | gap.snapshot()
-                        | self._obs.scalars(),
-                        steps)
-                    self._last_log = steps
-            finished = True
-        finally:
-            if self._fleet_status is not None:
-                self._fleet_status.stop()
-                self._fleet_status = None
-            self._dump_fleet_summary()
-            pool.cleanup()
-            self._dp_end(graceful=finished)
-            stop = self._stop_requested
-            if stop is not None:
-                stop.clear()
-        return self
+    def _iteration(self, target_steps: int) -> dict | None:
+        """One :class:`FusedStep` dispatch (a ``fused`` op to the other
+        ranks first), its episodes into the episode log, a given pool's
+        chunks ingested (hybrid; a group of one chunk per rank at dp > 1;
+        the fused step owns the train cadence) and the ``fused-0`` beat.
+        Returns the dispatch's metrics, or None when it trained none."""
+        gap = self._dispatch_gap
+        gap.about_to_dispatch()
+        if self._dp is not None:
+            self._dp_send("fused")
+        info = self._fused_dispatch()
+        gap.dispatch_returned()
+        if info["train_steps"]:
+            self.steps_rate.tick(info["train_steps"])
+        self.ingested += info["transitions"]
+        self.frames_rate.tick(info["transitions"])
+        for stat in info["stats"]:
+            stat.param_version = self.param_version
+            self._log_episode(stat)
+        for msg in self.pool.poll_chunks(64, timeout=0):
+            n_new = int(msg["n_trans"])
+            if self.n_dp > 1:
+                parts = split_group(msg["payload"], msg["priorities"],
+                                    self.n_dp)
+                self._dp_dispatch("ingest", *parts[0], parts[1:], n_new)
+            else:
+                self.replay_state = self.core.ingest(
+                    self.replay_state, msg["payload"], msg["priorities"])
+            self.ingested += n_new
+            self.frames_rate.tick(n_new)
+            self.fused.note_external_ingest(n_new)
+        self._beat.tick(info["frames"])
+        hb = self._beat.maybe_beat(self.param_version)
+        if hb is not None:
+            self.fleet.observe(hb)
+        return info["metrics"] if info["train_steps"] else None
 
     def fleet_summary(self) -> dict | None:
         """:meth:`ConcurrentTrainer.fleet_summary` with the fused plane's

@@ -21,13 +21,18 @@ Counterpart of :mod:`apex_tpu.training.apex` (reference ``ApeX.py``):
 * With a ``checkpoint_dir``, the whole learner is saved every
   ``save_interval`` learner steps (:mod:`apex_tpu_torch.training.checkpoint`).
 
-``train()`` runs the JAX trainer's default path (``apex.py:307-348``,
-``:389-407``): with ``LearnerConfig.ingest_pipeline`` (the default) it
-consumes slots that the staging thread of
-:mod:`apex_tpu_torch.training.ingest_pipeline` has already polled, merged
-and put on the device, and publishes through that thread; with
-``ingest_pipeline=False`` it is the serial drain (``apex.py:392-467``).
-Both dispatch ``scan_steps`` chunks over
+:meth:`ConcurrentTrainer.train` is the one loop of the concurrent
+trainers, :class:`~apex_tpu_torch.ondevice.fused.FusedApexTrainer`
+included: its session, loop head and per-iteration cadence are written
+once, and each iteration runs the class's body
+(:meth:`ConcurrentTrainer._iteration`) over the feed the class opens
+(:meth:`ConcurrentTrainer._open_feed`).  The body here is the JAX
+trainer's default path (``apex.py:307-348``, ``:389-407``): with
+``LearnerConfig.ingest_pipeline`` (the default) it consumes slots that
+the staging thread of :mod:`apex_tpu_torch.training.ingest_pipeline` has
+already polled, merged and put on the device, and publishes through that
+thread; with ``ingest_pipeline=False`` it is the serial drain
+(``apex.py:392-467``).  Both dispatch ``scan_steps`` chunks over
 :meth:`~apex_tpu_torch.training.learner.LearnerCore.fused_multi_step`.
 :meth:`ApexTrainer.consume` is the serial drain's single-chunk half, for
 callers that bring their own chunk messages.
@@ -249,6 +254,8 @@ class ConcurrentTrainer(CheckpointableTrainer):
     the updates on shard-sampled batches.
     """
 
+    #: the trace track of the hot loop's dispatch gaps
+    gap_track = LEARNER_TRACK
     _stop_requested: threading.Event | None = None
     # log and save cadence persist across train() calls
     _last_log = 0
@@ -832,21 +839,10 @@ class ConcurrentTrainer(CheckpointableTrainer):
         if self._obs is None:
             self._obs = obs_spans.LearnerObs(ring=ring)
         gap = self._dispatch_gap = DispatchGapTimer(ring=ring,
-                                                    track=LEARNER_TRACK)
+                                                    track=self.gap_track)
         if self.fleet is None:
             self.fleet = FleetRegistry(cfg.comms)
-        pipeline = None
-        if cfg.learner.ingest_pipeline:
-            pipeline = self._pipeline = IngestPipeline(
-                pool, device=self.device, depth=cfg.learner.pipeline_depth,
-                scan_steps=self.scan_steps,
-                merge_max=cfg.learner.pipeline_merge,
-                state_fn=self._pipeline_state,
-                capacity=self.replay.capacity,
-                frame_capacity=getattr(self.replay, "f_capacity", None),
-                replay_client=client, n_dp=self.n_dp,
-                uniforms=self._uniforms)
-            self._pipeline_base = self.ingested
+        pipeline = self._open_feed()
         try:
             if self.n_dp > 1:
                 # the ranks first: a rank that cannot start fails train()
@@ -892,77 +888,9 @@ class ConcurrentTrainer(CheckpointableTrainer):
                     # that waits out its timeout
                     self._ranks.check()
                     last_rank_check = now
-                # warm gates the learner's own pool; in service mode it
-                # fills only through the actors' fallback chunks
-                warm = self.ingested >= cfg.replay.warmup
-                steps = self.steps_rate.total
-                budget = self._budget()
-                # replay-ratio floor: a learner behind stops draining so
-                # the bounded chunk queue backpressures the actors; None
-                # while the dead-fleet reaction has relaxed it
-                floor = self._min_ratio_effective()
-                behind = (warm and floor is not None
-                          and steps * self.core.batch_size
-                          < self._ingested_effective() * floor)
-                got_data = False
-                if pipeline is not None:
-                    # service mode consumes while behind too: a batch slot
-                    # is the training a learner behind owes
-                    slot = None
-                    if not behind or client is not None:
-                        with span("apex.learner.poll", LEARNER_TRACK):
-                            slot = pipeline.poll_slot(
-                                timeout=0 if (warm or client is not None)
-                                else 0.05)
-                    if slot is not None:
-                        got_data = True
-                        m = self._consume_slot(slot, warm, budget,
-                                               target_steps)
-                        if m is not None:
-                            metrics = m
-                else:
-                    if client is not None and steps < budget:
-                        # serial service path: one pre-sampled batch per
-                        # iteration, its write-back sent inline
-                        with span("apex.learner.poll", LEARNER_TRACK):
-                            item = client.poll_batch(timeout=0.02)
-                        if item is not None:
-                            got_data = True
-                            metrics = self._consume_batch_slot(
-                                self._host_batch_slot(item))
-                    # scan dispatch: K chunks only when all K steps fit
-                    # both the ratio budget and the remaining total_steps
-                    want = 1
-                    if (self.scan_steps > 1 and warm
-                            and target_steps - steps >= self.scan_steps
-                            and steps + self.scan_steps - 1 < budget):
-                        want = self.scan_steps
-                    msgs = []
-                    if not behind:
-                        with span("apex.learner.poll", LEARNER_TRACK):
-                            msgs = pool.poll_chunks(
-                                want, timeout=0 if warm else 0.05)
-                    if msgs:
-                        got_data = True
-                        m = self._drain_serial(msgs, want, warm, budget)
-                        if m is not None:
-                            metrics = m
-                if not got_data and warm and steps < budget:
-                    gap.about_to_dispatch()
-                    with span("apex.learner.dispatch", LEARNER_TRACK):
-                        if self.n_dp > 1:
-                            metrics = self._dp_dispatch("train")
-                        else:
-                            self.train_state, self.replay_state, metrics = \
-                                self.core.train_step(self.train_state,
-                                                     self.replay_state,
-                                                     self._offsets(),
-                                                     self._beta())
-                    gap.dispatch_returned()
-                    self.dispatches["train"] += 1
-                    self.steps_rate.tick()
-                elif not got_data and warm:
-                    time.sleep(0.002)   # replay-ratio cap reached
+                m = self._iteration(target_steps)
+                if m is not None:
+                    metrics = m
                 if setup.pending:
                     setup.observe(
                         ingested=self.ingested > ingested0,
@@ -970,28 +898,26 @@ class ConcurrentTrainer(CheckpointableTrainer):
                         stepped=self.steps_rate.total > steps0)
 
                 steps = self.steps_rate.total
-                # interval since the last save: a scan dispatch can step
-                # over any exact multiple
+                # interval since the last save: a scan or fused dispatch
+                # can step over any exact multiple
                 if (self.checkpointer is not None
                         and steps - self._last_save
                         >= cfg.learner.save_interval):
                     self.save_checkpoint()
                     self._last_save = steps
+                stale = now - last_publish > 10 * self.publish_min_seconds
                 if steps:
                     due = (now - last_publish >= self.publish_min_seconds
                            and (steps - last_pub_step
-                                >= cfg.learner.publish_interval
-                                or now - last_publish
-                                > 10 * self.publish_min_seconds))
+                                >= cfg.learner.publish_interval or stale))
                 else:
                     # before the first step only a socket pool republishes
                     # (apex.py:465-483): a SUB socket that joined after
                     # the first publish never sees it (the zmq slow
                     # joiner), and actors without params send no chunks.
                     # In-host queues exist before the first publish.
-                    due = (getattr(pool, "needs_warmup_republish", False)
-                           and now - last_publish
-                           > 10 * self.publish_min_seconds)
+                    due = stale and getattr(pool, "needs_warmup_republish",
+                                            False)
                 if due:
                     self._publish()
                     last_publish = now
@@ -1045,6 +971,104 @@ class ConcurrentTrainer(CheckpointableTrainer):
             if stop is not None:
                 stop.clear()       # a request is honoured once, at exit
         return self
+
+    def _open_feed(self) -> IngestPipeline | None:
+        """The feed of one :meth:`train` call, before the pool starts:
+        with ``learner.ingest_pipeline`` the staging thread's pipeline
+        (started once the pool is), else None, the serial drain."""
+        if not self.cfg.learner.ingest_pipeline:
+            return None
+        self._pipeline = IngestPipeline(
+            self.pool, device=self.device,
+            depth=self.cfg.learner.pipeline_depth,
+            scan_steps=self.scan_steps,
+            merge_max=self.cfg.learner.pipeline_merge,
+            state_fn=self._pipeline_state,
+            capacity=self.replay.capacity,
+            frame_capacity=getattr(self.replay, "f_capacity", None),
+            replay_client=self.replay_client, n_dp=self.n_dp,
+            uniforms=self._uniforms)
+        self._pipeline_base = self.ingested
+        return self._pipeline
+
+    def _iteration(self, target_steps: int) -> dict | None:
+        """One iteration's work of :meth:`train`: a slot from the staging
+        thread, or the serial drain's pre-sampled batch and chunks, and
+        failing those a train-only step when warm and under the ratio
+        cap.  Returns the metrics of its last update, or None."""
+        cfg = self.cfg
+        pipeline, client = self._pipeline, self.replay_client
+        # warm gates the learner's own pool; in service mode it fills only
+        # through the actors' fallback chunks
+        warm = self.ingested >= cfg.replay.warmup
+        steps = self.steps_rate.total
+        budget = self._budget()
+        # replay-ratio floor: a learner behind stops draining so the
+        # bounded chunk queue backpressures the actors; None while the
+        # dead-fleet reaction has relaxed it
+        floor = self._min_ratio_effective()
+        behind = (warm and floor is not None
+                  and steps * self.core.batch_size
+                  < self._ingested_effective() * floor)
+        got_data = False
+        metrics = None
+        if pipeline is not None:
+            # service mode consumes while behind too: a batch slot is the
+            # training a learner behind owes
+            slot = None
+            if not behind or client is not None:
+                with span("apex.learner.poll", LEARNER_TRACK):
+                    slot = pipeline.poll_slot(
+                        timeout=0 if (warm or client is not None)
+                        else 0.05)
+            if slot is not None:
+                got_data = True
+                metrics = self._consume_slot(slot, warm, budget,
+                                             target_steps)
+        else:
+            if client is not None and steps < budget:
+                # serial service path: one pre-sampled batch per
+                # iteration, its write-back sent inline
+                with span("apex.learner.poll", LEARNER_TRACK):
+                    item = client.poll_batch(timeout=0.02)
+                if item is not None:
+                    got_data = True
+                    metrics = self._consume_batch_slot(
+                        self._host_batch_slot(item))
+            # scan dispatch: K chunks only when all K steps fit both the
+            # ratio budget and the remaining total_steps
+            want = 1
+            if (self.scan_steps > 1 and warm
+                    and target_steps - steps >= self.scan_steps
+                    and steps + self.scan_steps - 1 < budget):
+                want = self.scan_steps
+            msgs = []
+            if not behind:
+                with span("apex.learner.poll", LEARNER_TRACK):
+                    msgs = self.pool.poll_chunks(
+                        want, timeout=0 if warm else 0.05)
+            if msgs:
+                got_data = True
+                m = self._drain_serial(msgs, want, warm, budget)
+                if m is not None:
+                    metrics = m
+        if not got_data and warm and steps < budget:
+            gap = self._dispatch_gap
+            gap.about_to_dispatch()
+            with span("apex.learner.dispatch", LEARNER_TRACK):
+                if self.n_dp > 1:
+                    metrics = self._dp_dispatch("train")
+                else:
+                    self.train_state, self.replay_state, metrics = \
+                        self.core.train_step(self.train_state,
+                                             self.replay_state,
+                                             self._offsets(), self._beta())
+            gap.dispatch_returned()
+            self.dispatches["train"] += 1
+            self.steps_rate.tick()
+        elif not got_data and warm:
+            time.sleep(0.002)   # replay-ratio cap reached
+        return metrics
 
     def _start_status_server(self) -> None:
         """A socket pool's learner serves registry snapshots
@@ -1133,12 +1157,15 @@ class ConcurrentTrainer(CheckpointableTrainer):
                      "actor_dispatch_gap_ms_p50": stat.dispatch_gap_ms_p50},
                     steps)
             elif isinstance(stat, EpisodeStat):
-                self.log.scalars(
-                    {"episode_reward": stat.reward,
-                     "episode_length": stat.length,
-                     "episode_param_version": stat.param_version,
-                     "actor_id": stat.actor_id}, self._episode_idx)
-                self._episode_idx += 1
+                self._log_episode(stat)
+
+    def _log_episode(self, stat: EpisodeStat) -> None:
+        """One episode's stat into the episode log."""
+        self.log.scalars({"episode_reward": stat.reward,
+                          "episode_length": stat.length,
+                          "episode_param_version": stat.param_version,
+                          "actor_id": stat.actor_id}, self._episode_idx)
+        self._episode_idx += 1
 
     def actor_plane(self) -> dict | None:
         """The latest ActorTimingStat of each worker, aggregated; None

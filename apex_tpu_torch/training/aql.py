@@ -65,7 +65,7 @@ from apex_tpu_torch.training.checkpoint import (CheckpointableTrainer,
                                                 Checkpointer,
                                                 run_policy_episodes)
 from apex_tpu_torch.training.dqn import BetaSchedule, EpsilonSchedule
-from apex_tpu_torch.training.learner import LearnerCore
+from apex_tpu_torch.training.learner import LearnerCore, _advance
 from apex_tpu_torch.training.state import TrainState
 from apex_tpu_torch.utils.metrics import MetricLogger, RateCounter
 
@@ -114,11 +114,7 @@ class AQLCore(LearnerCore):
         self.optimizer.step(online, {"q": q_grads, "proposal": p_grads},
                             train_state.opt_state)
 
-        train_state.step += 1
-        if train_state.step % self.target_update_interval == 0:
-            with torch.no_grad():
-                for tgt, src in zip(target.parameters(), online.parameters()):
-                    tgt.copy_(src)
+        _advance(train_state, self.target_update_interval)
         metrics = {"loss": loss_q, "loss_proposal": loss_p,
                    "grad_norm": grad_norm, "q_mean": q_mean,
                    "td_mean": td_mean}

@@ -12,12 +12,14 @@ the step written by hand are the frame-ring gather inside
 segment-tree update (:mod:`apex_tpu_torch.ops.tree`), one launch for both
 trees at ingest and one at the priority write-back.
 
-On the card, :meth:`LearnerCore.update_from_batch` (forwards, loss,
-``autograd.grad``, clip and RMSprop) is one CUDA graph
-(:class:`UpdateGraph`), captured at the second update of a batch layout
-over the same parameter and optimizer tensors (:func:`graph_key`) and
-replayed from then on: one launch where the eager update makes over four
-hundred.  ``GRAPH_COUNTS`` counts the captures, replays and eager updates.
+An update has one body, :func:`td_update` (forwards, loss,
+``autograd.grad``, the dp mean, the optimizer's step, the metrics, the
+target sync).  On the card, :meth:`LearnerCore.update_from_batch` runs
+it eagerly at the first update of a batch layout over the same parameter
+and optimizer tensors (:func:`graph_key`), captures its device half as
+one CUDA graph (:class:`UpdateGraph`) at the second and replays that from
+then on: one launch where the eager update makes over four hundred.
+``GRAPH_COUNTS`` counts the captures, replays and eager updates.
 
 Where the JAX step takes a PRNG key, these take ``offsets``: the
 per-stratum uniforms of the PER sample (``f32[B]`` in ``[0, 1)``), drawn
@@ -50,12 +52,6 @@ GRAPH_COUNTS = {"capture": 0, "replay": 0, "eager": 0}
 #: the update's metrics (:func:`td_update`), in the order an
 #: :class:`UpdateGraph` keeps them
 METRICS = ("loss", "grad_norm", "q_mean", "td_mean")
-
-
-def _metrics(aux, grad_norm: torch.Tensor) -> dict:
-    """The update's :data:`METRICS` of one rank's loss output and norm."""
-    return dict(zip(METRICS, (aux.loss, grad_norm, aux.q_taken.mean(),
-                              aux.td_abs.mean())))
 
 
 def _views(batch: dict) -> dict:
@@ -125,31 +121,29 @@ def _advance(train_state: TrainState, target_update_interval: int) -> None:
 
 
 class UpdateGraph:
-    """The DQN update captured as one CUDA graph: both nets' forwards, the
-    loss, ``autograd.grad``, the global norm, the clip and RMSprop, in
-    place on the live parameters and moments.  Its inputs are static
-    copies of the batch (:func:`static_batch`) and weights; its output,
-    the priorities then :data:`METRICS`, one static tensor.  Captured
-    with ``thread_local`` errors, so threads that launch on their own
-    streams meanwhile (the staging thread, the rollout engine) may, as
-    long as they draw from generators of their own (the capture holds
-    the default CUDA generator); its memory is a pool of its own."""
+    """:func:`td_update`'s device half captured as one CUDA graph: both
+    nets' forwards, the loss, ``autograd.grad``, the global norm, the clip
+    and RMSprop, in place on the live parameters and moments.  Its inputs
+    are static copies of the batch (:func:`static_batch`) and weights,
+    which ``loss(batch, weights)`` reads; its output, the priorities then
+    :data:`METRICS`, one static tensor.  Captured with ``thread_local``
+    errors, so threads that launch on their own streams meanwhile (the
+    staging thread, the rollout engine) may, as long as they draw from
+    generators of their own (the capture holds the default CUDA
+    generator); its memory is a pool of its own."""
 
     def __init__(self, optimizer: ClipRMSprop, train_state: TrainState,
-                 batch: dict, weights: torch.Tensor, lr: torch.Tensor):
+                 loss, batch: dict, weights: torch.Tensor,
+                 lr: torch.Tensor):
         self.inputs, static = static_batch(batch)
         self.weights = weights.clone()
-        params = list(train_state.params.parameters())
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
-            loss, aux = double_dqn_loss(train_state.params,
-                                        train_state.target_params, static,
-                                        self.weights)
-            grads = torch.autograd.grad(loss, params)
-            grad_norm = optimizer.apply(params, grads, train_state.opt_state,
-                                        lr)
-            self.out = torch.cat([aux.priorities, torch.stack(
-                list(_metrics(aux, grad_norm).values()))])
+            _, priorities, metrics = td_update(
+                optimizer, None, train_state,
+                lambda: loss(static, self.weights), lr=lr)
+            self.out = torch.cat([priorities, torch.stack(
+                [metrics[name] for name in METRICS])])
 
     def replay(self, batch: dict, weights: torch.Tensor) -> torch.Tensor:
         """Copy ``batch`` and ``weights`` in, replay, and return a copy of
@@ -185,35 +179,35 @@ class LearnerCore:
         :class:`UpdateGraph` at the second and replays it from then on."""
         with span("apex.learner.update", LEARNER_TRACK):
             params = train_state.params
+
+            def loss(batch, weights):
+                return double_dqn_loss(params, train_state.target_params,
+                                       batch, weights)
+
             if graph_engages(train_state, group):
                 lr = self.optimizer.lr_tensor(
                     train_state.opt_state, next(params.parameters()).device)
                 key = graph_key(train_state, batch, weights)
                 if key in self._graph:
-                    return self._replayed(key, lr, train_state, batch,
+                    return self._replayed(key, lr, train_state, loss, batch,
                                           weights)
                 self._graph.clear()
                 self._graph[key] = None
             GRAPH_COUNTS["eager"] += 1
-
-            def loss_fn():
-                return double_dqn_loss(params, train_state.target_params,
-                                       batch, weights)
-
             return td_update(self.optimizer, self.target_update_interval,
-                             train_state, loss_fn, group)
+                             train_state, lambda: loss(batch, weights), group)
 
     def _replayed(self, key: tuple, lr: torch.Tensor,
-                  train_state: TrainState, batch: dict,
+                  train_state: TrainState, loss, batch: dict,
                   weights: torch.Tensor):
         """The update as a replay of ``key``'s graph, captured first if
         this is the key's second update; the host does the rest: the
-        counts and the target sync."""
+        optimizer's count and the target sync."""
         with span("apex.learner.loss", LEARNER_TRACK):
             graph = self._graph[key]
             if graph is None:
                 graph = self._graph[key] = UpdateGraph(
-                    self.optimizer, train_state, batch, weights, lr)
+                    self.optimizer, train_state, loss, batch, weights, lr)
                 GRAPH_COUNTS["capture"] += 1
             out = graph.replay(batch, weights)
             GRAPH_COUNTS["replay"] += 1
@@ -268,14 +262,18 @@ class LearnerCore:
         return train_state, replay_state, stacked
 
 
-def td_update(optimizer: ClipRMSprop, target_update_interval: int,
-              train_state: TrainState, loss_fn, group=None):
+def td_update(optimizer, target_update_interval: int | None,
+              train_state: TrainState, loss_fn, group=None,
+              lr: torch.Tensor | None = None):
     """Loss/grads -> (the mean over the dp ``group``) -> clip+optimizer ->
     target sync when the new step count is a multiple of
     ``target_update_interval``.  ``loss_fn() -> (loss, TDOutput)``.
     Returns ``(train_state, priorities, metrics)``; the metrics are device
     scalars (no host sync): ``loss``, ``grad_norm`` (of the unclipped
-    grads), ``q_mean`` and ``td_mean``.
+    grads), ``q_mean`` and ``td_mean``.  With ``lr`` (a 0-d tensor, as an
+    :class:`UpdateGraph` captures it) the optimizer's device half runs at
+    that rate (:meth:`ClipRMSprop.apply`: no host work), and the count and
+    the target sync are left to the caller.
 
     With a ``group`` (:class:`~apex_tpu_torch.parallel.mesh.DpGroup`) the
     grads, ``loss``, ``q_mean`` and ``td_mean`` are meaned over its ranks
@@ -287,21 +285,21 @@ def td_update(optimizer: ClipRMSprop, target_update_interval: int,
     with span("apex.learner.loss", LEARNER_TRACK):
         loss, aux = loss_fn()
         grads = list(torch.autograd.grad(loss, params))
-    scalars = None
     with span("apex.learner.optimizer", LEARNER_TRACK):
+        loss, q_mean, td_mean = (aux.loss, aux.q_taken.detach().mean(),
+                                 aux.td_abs.mean())
         if group is not None:
-            scalars = torch.stack([aux.loss, aux.q_taken.detach().mean(),
-                                   aux.td_abs.mean()])
+            scalars = torch.stack([loss, q_mean, td_mean])
             group.all_reduce_mean_(grads + [scalars])
-        grad_norm = optimizer.step(params, grads, train_state.opt_state)
-        _advance(train_state, target_update_interval)
-
-    if scalars is None:
-        metrics = _metrics(aux, grad_norm)
-    else:
-        metrics = {"loss": scalars[0], "grad_norm": grad_norm,
-                   "q_mean": scalars[1], "td_mean": scalars[2]}
-    return train_state, aux.priorities, metrics
+            loss, q_mean, td_mean = scalars.unbind()
+        if lr is None:
+            grad_norm = optimizer.step(params, grads, train_state.opt_state)
+            _advance(train_state, target_update_interval)
+        else:
+            grad_norm = optimizer.apply(params, grads, train_state.opt_state,
+                                        lr)
+    return train_state, aux.priorities, dict(zip(
+        METRICS, (loss, grad_norm, q_mean, td_mean)))
 
 
 def build_learner(model: nn.Module, replay_capacity: int,

@@ -36,6 +36,7 @@ import torch
 
 from apex_tpu_torch.config import (ActorConfig, ApexConfig, EnvConfig,
                                    LearnerConfig, ReplayConfig)
+from apex_tpu_torch.obs import spans as obs_spans
 from apex_tpu_torch.ondevice.fused import (FusedApexTrainer, FusedStep,
                                            acting_priorities)
 from apex_tpu_torch.ondevice.replay import DeviceFramePool
@@ -380,7 +381,8 @@ def test_refusals_name_their_knobs():
 
 
 def test_fused_trainer_trains_then_checkpoint_roundtrips(tmp_path):
-    """train() takes its steps; a checkpoint restores the learner bit for
+    """train() takes its steps and logs each ended episode with the param
+    version it acted under; a checkpoint restores the learner bit for
     bit and re-seeds the warm/anneal counter, and the restored trainer
     keeps dispatching."""
     t = FusedApexTrainer(_cfg(), device="cpu", steps_per_dispatch=2,
@@ -391,6 +393,12 @@ def test_fused_trainer_trains_then_checkpoint_roundtrips(tmp_path):
     assert t.param_version >= 1
     losses = [v for _, v in t.log.history.get("learner/loss", [])]
     assert losses and all(np.isfinite(losses))
+    history = t.log.history
+    versions = [v for _, v in history.get("learner/episode_param_version",
+                                          [])]
+    assert versions and len(versions) == len(
+        history["learner/episode_reward"])
+    assert all(v in range(1, t.param_version + 1) for v in versions)
     path = t.save_checkpoint()
     assert os.path.exists(path)
 
@@ -408,15 +416,20 @@ def test_fused_trainer_trains_then_checkpoint_roundtrips(tmp_path):
 def test_fused_train_with_a_logdir_writes_its_fleet_summary(tmp_path):
     """A fused ``train()`` with a logdir ends by writing
     ``fleet_summary.json``; its latency section carries the lineage
-    histograms and no set-up durations, which only the concurrent loop
-    stamps."""
+    histograms and the set-up durations between the call's milestones,
+    which the one concurrent loop stamps for the fused body too."""
     import json
 
     t = FusedApexTrainer(_cfg(), device="cpu", steps_per_dispatch=2,
                          rollout_len=8, logdir=str(tmp_path))
     t.train(total_steps=2, max_seconds=120.0, log_every=10 ** 9)
     latency = t.fleet_summary()["latency"]
-    assert "hops_s" in latency and "setup_s" not in latency
+    assert "hops_s" in latency and "setup_s" in latency
+    marks = obs_spans.SetupClock.MILESTONES
+    assert set(latency["setup_s"]) == {
+        f"{a}_to_{b}" for a, b in zip(marks, marks[1:])} | {
+        "train_to_first_step"}
+    assert all(v >= 0 for v in latency["setup_s"].values())
     with open(tmp_path / "fleet_summary.json", encoding="utf-8") as fh:
         written = json.load(fh)
     assert set(written["latency"]) == set(latency)
